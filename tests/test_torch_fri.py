@@ -106,8 +106,7 @@ def test_high_degree_codeword_rejected():
 
 def test_overlong_last_codeword_rejected(monkeypatch):
     """A last codeword 512 times the honest length, with its root forged to
-    match, passes the omega-order check; it is refused before its NTT (which
-    the card could not run above 2^12 points)."""
+    match, passes the omega-order check; it is refused before its NTT runs."""
     fri = _fri()
     rounds = fri.num_rounds()
     ps = ProofStream(F)
@@ -132,5 +131,8 @@ def test_overlong_last_codeword_rejected(monkeypatch):
 
 
 def test_cuda_fri_refuses_domains_beyond_the_kernel():
+    """On the card the NTT reaches 2^24 points through the four-step split,
+    so a 2^20 domain is taken and a 2^25 one refused up front."""
+    FRI(F, 1, F.primitive_nth_root(1 << 20).value, 1 << 20, 4, 2, device="cuda")
     with pytest.raises(NotImplementedError, match="four-step"):
-        FRI(F, 1, F.primitive_nth_root(1 << 13).value, 1 << 13, 4, 2, device="cuda")
+        FRI(F, 1, F.primitive_nth_root(1 << 25).value, 1 << 25, 4, 2, device="cuda")

@@ -30,7 +30,7 @@ F = Field()
 
 _HARNESS = r"""
 #include <stdint.h>
-struct Dim { unsigned x; };
+struct Dim { unsigned x, y; };
 static Dim threadIdx, blockIdx, blockDim;
 #define __global__
 #define __device__
@@ -43,10 +43,16 @@ Fe4 sh[1 << 12];
 #include "fold.cu"
 #include "blake2b.cu"
 
-static void grid(unsigned blocks) { blockDim.x = 1; threadIdx.x = 0; (void)blocks; }
-extern "C" void host_ntt(const int64_t* x, int64_t* y, const uint32_t* tw, int log2n, int batch) {
-  grid(batch);
-  for (int b = 0; b < batch; ++b) { blockIdx.x = b; ntt_stages_kernel(x, y, tw, log2n); }
+static void grid(unsigned blocks) { blockDim.x = 1; threadIdx.x = 0; blockIdx.y = 0; (void)blocks; }
+extern "C" void host_ntt(const int64_t* x, int64_t* y, const uint32_t* tw, const uint32_t* ft,
+                         int log2n, int gx, int gy, long long ibx, long long iby, long long ie,
+                         long long obx, long long oby, long long oe) {
+  grid(gx);
+  for (int by = 0; by < gy; ++by)
+    for (int bx = 0; bx < gx; ++bx) {
+      blockIdx.x = bx; blockIdx.y = by;
+      ntt_stages_kernel(x, y, tw, ft, log2n, Strides{ibx, iby, ie}, Strides{obx, oby, oe});
+    }
 }
 extern "C" void host_fold(const int64_t* cw, const int64_t* ip, const int64_t* ao,
                           const int64_t* ti, int64_t* f, int64_t* c, int half) {
@@ -78,7 +84,9 @@ def lib(tmp_path_factory):
          f"-I{CSRC}", "-o", str(so), str(src)],
         check=True, capture_output=True, timeout=120,
     )
-    return ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(so))
+    lib.host_ntt.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 6
+    return lib
 
 
 def _ptrs(*tensors):
@@ -92,14 +100,45 @@ def _rand_mont(seed, n):
     return L.ints_to_mont([(int(h) << 63 | int(l)) % P for h, l in zip(hi, lo)], "cpu")
 
 
+def _ntt_source(lib, x, root):
+    """The passes ntt_kernel launches on the card (N.kernel_passes: the
+    same tables, grids and strides), run through the emulated source;
+    returns the output and the kernels of the passes."""
+    n, batch = x.shape[0], x[0].numel() // L.NLIMB
+    src, kernels = x, []
+    for p in N.kernel_passes(n, batch, root):
+        tw, ft = N.pass_tables(p, "cpu")
+        dst = torch.empty_like(x)
+        lib.host_ntt(src.data_ptr(), dst.data_ptr(), tw.data_ptr(),
+                     None if ft is None else ft.data_ptr(),
+                     p.m.bit_length() - 1, *p.grid, *p.ins, *p.outs)
+        src = dst
+        kernels.append(p.kernel)
+    return src, kernels
+
+
 @pytest.mark.parametrize("n", [2, 16, 512, 4096])
 def test_ntt_kernel_source(lib, n):
     root = F.primitive_nth_root(n).value
-    x = _rand_mont(n, 2 * n).reshape(2, n, L.NLIMB).contiguous()
-    y = torch.empty_like(x)
-    tw = N._twiddles_u32(root, n, "cpu")
-    lib.host_ntt(*_ptrs(x, y, tw), n.bit_length() - 1, 2)
-    assert torch.equal(y, N.ntt_plain(x.movedim(0, -2), root).movedim(-2, 0))
+    x = _rand_mont(n, 2 * n).reshape(n, 2, L.NLIMB)
+    y, kernels = _ntt_source(lib, x, root)
+    assert kernels == [N.NTT_KERNEL]
+    assert torch.equal(y, N.ntt_plain(x, root))
+
+
+@pytest.mark.parametrize("n, max_kernel_n", [(1 << 13, 1 << 12), (1 << 9, 1 << 5)])
+def test_ntt_fused_twiddle_source(lib, monkeypatch, n, max_kernel_n):
+    """The four-step's two passes, the first in the fused-twiddle mode,
+    equal the flat plain transform: 2^13 = 2^7 x 2^6, and 2^9 = 2^5 x 2^4
+    with the single-block limit lowered to 2^5."""
+    monkeypatch.setattr(N, "MAX_KERNEL_N", max_kernel_n)
+    root = F.primitive_nth_root(n).value
+    x = _rand_mont(n + 1, 3 * n).reshape(n, 3, L.NLIMB)
+    y, kernels = _ntt_source(lib, x, root)
+    assert kernels == [N.NTT_TW_KERNEL, N.NTT_KERNEL]
+    assert torch.equal(y, N.ntt_plain(x, root))
+    inv = pow(root, -1, P)
+    assert torch.equal(_ntt_source(lib, x, inv)[0], N.ntt_plain(x, inv))
 
 
 def test_fold_kernel_source(lib):

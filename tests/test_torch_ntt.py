@@ -140,9 +140,63 @@ def test_kernel_twiddle_table_is_the_plain_power_table():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_large_transforms():
+    """A CPU tensor is refused; so is a transform beyond the four-step's
+    2^24 points (a meta tensor: no memory behind it)."""
     x = L.ints_to_mont([1, 2, 3, 4], "cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         N.ntt_kernel(x, F.primitive_nth_root(4).value)
-    big = torch.zeros((N.MAX_KERNEL_N * 2, L.NLIMB), dtype=L.DTYPE)
+    n = 2 * N.MAX_KERNEL_N ** 2
+    big = torch.empty((n, L.NLIMB), dtype=L.DTYPE, device="meta")
     with pytest.raises(NotImplementedError, match="four-step"):
-        N.ntt_kernel(big, F.primitive_nth_root(N.MAX_KERNEL_N * 2).value)
+        N.ntt_kernel(big, F.primitive_nth_root(n).value)
+
+
+@pytest.mark.parametrize("n", [1 << 13, 1 << 14])
+def test_four_step_matches_jax(n):
+    """Above 2^12 points the CPU path is the four-step glue with plain
+    passes; it equals the JAX package's transform (its flat form at these
+    sizes) and the port's flat plain transform, forward and inverse."""
+    vals = _rand(np.random.default_rng(n), n)
+    root = F.primitive_nth_root(n).value
+    x = L.ints_to_mont(vals, "cpu")
+    got = N.ntt_mont(x, root)
+    want = np.asarray(JN.ntt_mont(JL.ints_to_mont(vals), root))
+    assert np.array_equal(got.numpy().astype(np.uint32), want)
+    assert torch.equal(got, N.ntt_plain(x, root))
+    back = N.intt_mont(got, root)
+    assert np.array_equal(
+        back.numpy().astype(np.uint32), np.asarray(JN.intt_mont(want, root))
+    )
+    assert _ints(back) == vals
+
+
+def test_four_step_uneven_split_batched(monkeypatch):
+    """With the single-block limit lowered to 2^5, 2^9 points split
+    unevenly as 2^5 x 2^4; batched columns transform independently."""
+    monkeypatch.setattr(N, "MAX_KERNEL_N", 1 << 5)
+    n = 1 << 9
+    assert N.four_step_split(n) == (32, 16)
+    root = F.primitive_nth_root(n).value
+    x = L.ints_to_mont(_rand(np.random.default_rng(9), 3 * n), "cpu").reshape(n, 3, L.NLIMB)
+    got = N.ntt_mont(x, root)
+    assert torch.equal(got, N.ntt_plain(x, root))
+    assert torch.equal(N.intt_mont(got, root), x)
+    with pytest.raises(NotImplementedError, match="recursive split"):
+        N.four_step_split(1 << 11)
+
+
+def test_four_step_twiddles_and_power_tables():
+    """The device-built tables (binary-weighted products) equal host
+    powers: root^(i2 * k1) in the fused mode's [c, r] layout and words."""
+    r, c = 8, 4
+    root = F.primitive_nth_root(r * c).value
+    table = N._four_step_twiddles(root, r, c, "cpu")
+    assert [[int(v) for v in row] for row in L.mont_to_ints(table)] == [
+        [pow(root, i2 * k1, P) for k1 in range(r)] for i2 in range(c)
+    ]
+    words = N._four_step_twiddles_u32(root, r, c, "cpu").numpy().view(np.uint32)
+    limbs = table.numpy()
+    assert np.array_equal(words, (limbs[..., 0::2] | (limbs[..., 1::2] << 16)).astype(np.uint32))
+    exps = torch.tensor([0, 1, 5, 1000, 65535])
+    got = N.pow_by_exponents(L.one_mont("cpu").expand(5, L.NLIMB), 7, exps, 16)
+    assert _ints(got) == [pow(7, int(e), P) for e in exps]

@@ -1,10 +1,13 @@
 """The port's polynomial operations against the host Polynomial (the JAX
-package's jax-free reference), on the CPU."""
+package's jax-free reference) and, for the long-polynomial evaluator, the
+JAX package's own, on the CPU."""
 
 import numpy as np
 import pytest
 import torch
 
+from zk_stark_tpu.ops import limbs as JL
+from zk_stark_tpu.ops import poly_ops as JPO
 from zk_stark_tpu.poly import MPolynomial as HostMPoly
 from zk_stark_tpu.poly import Polynomial as HostPoly
 from zk_stark_tpu_torch.field import FIELD_PRIME as P
@@ -67,6 +70,42 @@ def test_evaluate_many(n):
     coeffs, pts = _rand(3, n), _rand(4, 5)
     got = PO.evaluate_many(L.ints_to_mont(coeffs, "cpu"), L.ints_to_mont(pts, "cpu"))
     assert [int(v) for v in L.mont_to_ints(got)] == [_host(coeffs).evaluate(x) for x in pts]
+
+
+def test_long_polynomials_match_jax():
+    """From 513 coefficients evaluation is log-depth; at 675 (the chain
+    fixture's round-constant polynomials) it equals the JAX package's
+    parallel kernel, the port's own Horner form and the host reference."""
+    n, k = 675, 5
+    coeffs = [_rand(20 + b, n) for b in range(3)]
+    pts = _rand(30, k)
+    c_t = torch.stack([L.ints_to_mont(c, "cpu") for c in coeffs])
+    p_t = L.ints_to_mont(pts, "cpu")
+
+    # the JAX package's evaluate_many runs this parallel kernel for one
+    # polynomial; one compile for three holds the port's evaluate_many too
+    want = np.asarray(
+        JPO.evaluate_polys_shared(np.asarray(c_t.numpy(), np.uint32), JL.ints_to_mont(pts))
+    )
+    shared = PO.evaluate_polys_shared(c_t, p_t)
+    assert np.array_equal(shared.numpy().astype(np.uint32), want)
+    assert torch.equal(shared, PO._evaluate_horner(c_t, p_t))
+
+    for b in range(3):
+        got = PO.evaluate_many(c_t[b], p_t)
+        assert np.array_equal(got.numpy().astype(np.uint32), want[b])
+        assert [int(v) for v in L.mont_to_ints(got)] == [
+            _host(coeffs[b]).evaluate(x) for x in pts
+        ]
+
+
+def test_long_polynomial_blocks(monkeypatch):
+    """The log-depth form sums its products in blocks; blocks of 7 products
+    (an uneven last block) give the same values."""
+    monkeypatch.setattr(PO, "_EVAL_BLOCK", 7 * 2 * 3)
+    c_t = torch.stack([L.ints_to_mont(_rand(40 + b, 600), "cpu") for b in range(2)])
+    p_t = L.ints_to_mont(_rand(50, 3), "cpu")
+    assert torch.equal(PO.evaluate_polys_shared(c_t, p_t), PO._evaluate_horner(c_t, p_t))
 
 
 def test_degree_sums_and_scans():

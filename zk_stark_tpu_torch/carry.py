@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .field import Field
+from .models.rescue_chain import make_chain_stark
 from .models.rpsss import RPSSS
 
 
@@ -45,6 +46,25 @@ def rpsss_from_config(
         num_collinearity_checks=meta_config["num_collinearity_checks"],
         security_level=meta_config["security_level"],
         transition_constraints_degree=meta_config["transition_constraints_degree"],
+        rng=rng,
+        device=device,
+    )
+
+
+def chain_from_config(
+    config: dict, device="cuda", rng: Callable[[int], bytes] = os.urandom
+):
+    """The port's (RescueChain, Stark) for a ``tests/fixtures/chain_meta.json``
+    -style config: chain_length, expansion_factor, num_collinearity_checks,
+    security_level.  The state the JAX package's AIR holds for it, the
+    round-constant polynomials (``RescueChainAir._constant_polys()``, uint32
+    [2m, R, 8]), equals the port's own through :func:`limbs_from_numpy`."""
+    return make_chain_stark(
+        Field(),
+        config["chain_length"],
+        expansion_factor=config["expansion_factor"],
+        num_collinearity_checks=config["num_collinearity_checks"],
+        security_level=config["security_level"],
         rng=rng,
         device=device,
     )

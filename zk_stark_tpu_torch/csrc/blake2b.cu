@@ -23,8 +23,11 @@
 // Bound: operations.  A compression is ~2.9k 64-bit integer ops (96 G
 // mixes) for at most 128 bytes in and 64 out; a 64-bit add or rotate is
 // several 32-bit instructions on the SM.  One thread per digest gives the
-// card n (or n/2) independent compressions; at the main path's 4096 leaves
-// that is 32 blocks of 128, which fills a quarter of the SMs.
+// card n (or n/2) independent compressions; at the signature's 4096 leaves
+// that is 32 blocks of 128, which fills a quarter of the SMs.  At the
+// chain's 2^20 leaves (2^19 parents) the leaf takes 0.268 ms against a
+// 0.104 ms bound and the node 0.075 ms against 0.042 ms (H100 80GB HBM3,
+// 700 W, chip_smoke.py, bound at the SM issue rate).
 
 #include <stdint.h>
 

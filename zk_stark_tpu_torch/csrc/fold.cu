@@ -12,9 +12,11 @@
 // Bound: device memory.  Per output it reads lo, hi and w^-i (3 x 64 B as
 // int64 limbs) and writes folded and canon (2 x 64 B); the ~70 32-bit
 // multiplies per element are far below the integer rate for that traffic.
-// At the main path's n <= 4096 the launch itself dominates; the design
-// fuses the whole round (and the canonical form) into one pass so the
-// round costs one launch and one trip through memory.
+// At the signature's n <= 4096 the launch itself dominates; at the chain's
+// n = 2^20 it takes 0.127 ms against a 0.050 ms bytes bound (H100 80GB
+// HBM3, 700 W, chip_smoke.py).  The design fuses the whole round (and the
+// canonical form) into one pass so the round costs one launch and one trip
+// through memory.
 
 #include <stdint.h>
 

@@ -1,21 +1,32 @@
 """Radix-2 NTT / iNTT over GF(p) limb tensors.
 
-Counterpart of the JAX package's ``ops/ntt.py``: same transform, same
-pad-to-power-of-two and ``len < 2`` pass-through semantics.  The transform
-runs along axis 0 of ``[n, *batch, 8]`` Montgomery tensors.
+Counterpart of the JAX package's ``ops/ntt.py`` and of the Pallas four-step
+glue (``ops/ntt_pallas.py`` ``_four_step_pallas``, ``ntt_mont_pallas``):
+same transform, same pad-to-power-of-two and ``len < 2`` pass-through
+semantics.  The transform runs along axis 0 of ``[n, *batch, 8]``
+Montgomery tensors.
 
-On a CUDA tensor :func:`ntt_mont` launches the hand-written kernel of
-``csrc/ntt.cu`` (one thread block per transform, all stages in shared
-memory; the counterpart of the TPU's ``_ntt_stages_kernel``); transforms
-above 2^12 points raise, because the four-step glue that splits them is not
-ported yet.  On a CPU tensor it runs :func:`ntt_plain`, the same butterflies
-as vectorised tensor code.
+Up to :data:`MAX_KERNEL_N` points a transform is one block of the
+hand-written kernel of ``csrc/ntt.cu`` (all stages in shared memory; the
+counterpart of the TPU's ``_ntt_stages_kernel``).  Above that, up to
+``MAX_KERNEL_N ** 2`` (2^24), the four-step split ``n = r * c`` runs it
+twice: the c columns of length r with root w^c, each multiplied by
+w^(k1 * i2) in the kernel's fused-twiddle mode before its store, then the
+r rows of length c with root w^r, written so that the output index
+k = k1 + r * k2 is in natural order.  Larger transforms raise (the
+recursive split is not ported).
+
+On a CUDA tensor :func:`ntt_mont` launches the kernel; on a CPU tensor it
+runs the same passes (:func:`kernel_passes`: grids, strides and tables),
+each with :func:`ntt_plain` (the butterflies as vectorised tensor code) in
+place of the kernel and a plain twiddle multiply in place of the fused one.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,35 +35,50 @@ from ..utils.bits import bit_reverse_indices, next_pow2
 from . import _build
 from . import limbs as L
 
-#: largest transform one thread block holds in shared memory (64 KB)
+#: largest transform one thread block holds in shared memory (64 KB); a
+#: four-step transform is at most its square
 MAX_KERNEL_N = 1 << 12
 
+_STRIDES = [ctypes.c_longlong] * 6
 NTT_KERNEL = _build.Kernel(
     "ntt",
     "ntt_launch",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + _STRIDES + [ctypes.c_void_p],
     replaces="zk_stark_tpu/ops/ntt_pallas.py:180 (_ntt_stages_kernel)",
+)
+#: the same kernel in its fused-twiddle mode (the four-step's first pass)
+NTT_TW_KERNEL = _build.Kernel(
+    "ntt",
+    "ntt_tw_launch",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + _STRIDES + [ctypes.c_void_p],
+    replaces="zk_stark_tpu/ops/ntt_pallas.py:180 (_ntt_stages_kernel, fuse_tw :266)",
 )
 
 
 # -----------------------------------------------------------------------------
-# Power tables (host-computed, cached per device)
+# Power tables (built on the device, cached per device)
 # -----------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _powers_np(base_int: int, n: int, scale_int: int) -> np.ndarray:
-    vals, cur, base = [], scale_int % L.P, base_int % L.P
-    for _ in range(n):
-        vals.append(cur * L.R_INT % L.P)
-        cur = cur * base % L.P
-    return L.ints_to_limbs(vals).reshape(n, L.NLIMB)
+def pow_by_exponents(
+    acc: torch.Tensor, base_int: int, exps: torch.Tensor, nbits: int
+) -> torch.Tensor:
+    """``acc * base^exps`` elementwise: ``acc`` [..., 8] Montgomery, ``exps``
+    int64 [...] below 2^nbits.  Binary-weighted: one Montgomery product by
+    base^(2^k) per bit k, kept where bit k of the exponent is set."""
+    b = base_int % L.P
+    for k in range(nbits):
+        bit = ((exps >> k) & 1).bool().unsqueeze(-1)
+        acc = torch.where(bit, L.mont_mul(acc, L.int_to_mont(b, acc.device)), acc)
+        b = b * b % L.P
+    return acc
 
 
 @functools.lru_cache(maxsize=None)
 def _powers_dev(base_int: int, n: int, scale_int: int, device: str) -> torch.Tensor:
-    return L.from_numpy(_powers_np(base_int, n, scale_int), device)
+    scale = L.int_to_mont(scale_int, device).expand(n, L.NLIMB)
+    exps = torch.arange(n, dtype=L.DTYPE, device=device)
+    return pow_by_exponents(scale, base_int, exps, max(1, (n - 1).bit_length()))
 
 
 def powers_mont(base_int: int, n: int, device, scale_int: int = 1) -> torch.Tensor:
@@ -61,13 +87,35 @@ def powers_mont(base_int: int, n: int, device, scale_int: int = 1) -> torch.Tens
     return _powers_dev(base_int, n, scale_int, str(torch.device(device)))
 
 
+def _words(limbs: torch.Tensor) -> torch.Tensor:
+    """[..., 8] 16-bit limbs -> [..., 4] 32-bit words (as int32), the
+    kernel's element layout."""
+    w = limbs[..., 0::2] | (limbs[..., 1::2] << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _twiddles_u32(root_int: int, n: int, device: str) -> torch.Tensor:
-    """The kernel's twiddle table: root^k for k < n/2 as [n/2, 4] 32-bit
-    words (Montgomery), built once per (root, n) and kept on the card."""
-    limbs = _powers_np(root_int, max(1, n // 2), 1).astype(np.uint32)
-    words = (limbs[:, 0::2] | (limbs[:, 1::2] << 16)).astype(np.uint32)
-    return torch.from_numpy(words.view(np.int32).copy()).to(device)
+    """The kernel's stage twiddles: root^k for k < n/2 as [n/2, 4] 32-bit
+    words (Montgomery), built once per (root, n) and kept on the device."""
+    return _words(powers_mont(root_int, max(1, n // 2), device))
+
+
+@functools.lru_cache(maxsize=None)
+def _four_step_twiddles(root_int: int, r: int, c: int, device: str) -> torch.Tensor:
+    """[c, r, 8] Montgomery root^(i2 * k1) (row i2 < c, column k1 < r)."""
+    i2 = torch.arange(c, dtype=L.DTYPE, device=device).unsqueeze(1)
+    k1 = torch.arange(r, dtype=L.DTYPE, device=device).unsqueeze(0)
+    n = r * c
+    ones = L.one_mont(device).expand(c, r, L.NLIMB)
+    return pow_by_exponents(ones, root_int, (i2 * k1) % n, (n - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def _four_step_twiddles_u32(root_int: int, r: int, c: int, device: str) -> torch.Tensor:
+    """The fused mode's table: [c, r, 4] words, row i2 multiplying the
+    first pass's transform of column i2."""
+    return _words(_four_step_twiddles(root_int, r, c, device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,8 +123,21 @@ def _brev(n: int, device: str) -> torch.Tensor:
     return torch.from_numpy(bit_reverse_indices(n).astype(np.int64)).to(device)
 
 
+def four_step_split(n: int) -> tuple[int, int]:
+    """(r, c) with n = r * c, r = 2^ceil(log2(n)/2), both at most
+    MAX_KERNEL_N; raises above MAX_KERNEL_N ** 2."""
+    if n > MAX_KERNEL_N * MAX_KERNEL_N:
+        raise NotImplementedError(
+            f"NTT of {n} > {MAX_KERNEL_N * MAX_KERNEL_N} points needs the recursive "
+            "split beyond the four-step (ROADMAP queue B: _planes_long_ntt), not ported"
+        )
+    log2n = n.bit_length() - 1
+    r = 1 << ((log2n + 1) // 2)
+    return r, n // r
+
+
 # -----------------------------------------------------------------------------
-# Core transform: plain version and kernel
+# Core transform: plain versions and kernel
 # -----------------------------------------------------------------------------
 
 
@@ -101,35 +162,120 @@ def ntt_plain(x: torch.Tensor, root_int: int) -> torch.Tensor:
     return x
 
 
+class Pass(NamedTuple):
+    """One batched launch of the kernel: ``grid`` (x, y) transforms of
+    ``m`` points with root ``root``; element i of transform (bx, by) at
+    bx * s[0] + by * s[1] + i * s[2] (strides ``ins`` of the input, ``outs``
+    of the output, in elements of 8 limbs).  ``four_step`` is (root, r, c)
+    of the fused-twiddle table in the first pass of a four-step, else None."""
+
+    kernel: _build.Kernel
+    root: int
+    four_step: tuple | None
+    m: int
+    grid: tuple[int, int]
+    ins: tuple[int, int, int]
+    outs: tuple[int, int, int]
+
+
+def kernel_passes(n: int, batch: int, root_int: int) -> list[Pass]:
+    """The passes of ``batch`` transforms of n points laid out as [n, batch]:
+    one up to MAX_KERNEL_N points, the four-step's two above."""
+    if n <= MAX_KERNEL_N:
+        # transform b: element i at i * batch + b
+        return [Pass(NTT_KERNEL, root_int, None, n, (batch, 1), (1, 0, batch), (1, 0, batch))]
+    r, c = four_step_split(n)
+    return [
+        # column (i2, b): element i1 at (i1 * c + i2) * batch + b; k1 is
+        # stored where i1 was, times root^(i2 * k1)
+        Pass(NTT_TW_KERNEL, pow(root_int, c, L.P), (root_int, r, c), r,
+             (c, batch), (batch, 1, c * batch), (batch, 1, c * batch)),
+        # row (k1, b): element i2 at (k1 * c + i2) * batch + b; k2 goes to
+        # output index k1 + r * k2
+        Pass(NTT_KERNEL, pow(root_int, r, L.P), None, c,
+             (r, batch), (c * batch, 1, batch), (batch, 1, r * batch)),
+    ]
+
+
+def pass_tables(p: Pass, device: str) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The kernel's stage twiddles and fused-twiddle table (or None) of a pass."""
+    ft = None if p.four_step is None else _four_step_twiddles_u32(*p.four_step, device)
+    return _twiddles_u32(p.root, p.m, device), ft
+
+
+def _launch_pass(src: torch.Tensor, dst: torch.Tensor, p: Pass) -> None:
+    tw, ft = pass_tables(p, str(src.device))
+    ptrs = [src.data_ptr(), dst.data_ptr(), tw.data_ptr()]
+    if ft is not None:
+        ptrs.append(ft.data_ptr())
+    p.kernel(*ptrs, p.m.bit_length() - 1, *p.grid, *p.ins, *p.outs,
+             _build.stream_ptr(src.device))
+
+
+def _plain_pass(src: torch.Tensor, dst: torch.Tensor, p: Pass) -> None:
+    """The pass in tensor code: :func:`ntt_plain` on the transforms read
+    through the kernel's input strides, the fused twiddle as a plain
+    product, the result written through its output strides."""
+    shape = (p.m,) + tuple(p.grid) + (L.NLIMB,)
+
+    def view(t, s):
+        return t.as_strided(shape, (L.NLIMB * s[2], L.NLIMB * s[0], L.NLIMB * s[1], 1))
+
+    y = ntt_plain(view(src, p.ins), p.root)  # [m, gx, gy, 8]
+    if p.four_step is not None:
+        ft = _four_step_twiddles(*p.four_step, str(src.device))  # [gx, m, 8]
+        y = L.mont_mul(y, ft.transpose(0, 1).unsqueeze(2))
+    view(dst, p.outs).copy_(y)
+
+
+def _batch(x: torch.Tensor, name: str) -> int:
+    """The number of transforms in x [n, *batch, 8]; raises on a bad shape
+    or beyond the four-step's reach."""
+    n = x.shape[0]
+    if x.shape[-1] != L.NLIMB or n < 2 or n & (n - 1):
+        raise ValueError(f"{name}: bad shape {tuple(x.shape)}")
+    if n > MAX_KERNEL_N:
+        four_step_split(n)
+    return x.numel() // (n * L.NLIMB)
+
+
+def _run_passes(x: torch.Tensor, batch: int, root_int: int, run_pass) -> torch.Tensor:
+    src = x
+    for p in kernel_passes(x.shape[0], batch, root_int):
+        dst = torch.empty_like(src)
+        run_pass(src, dst, p)
+        src = dst
+    return src
+
+
 def ntt_kernel(x: torch.Tensor, root_int: int) -> torch.Tensor:
     """Launch ``csrc/ntt.cu`` on a CUDA tensor [n, *batch, 8] (n a power of
-    two, 2 <= n <= 2^12); returns a new tensor of the same shape."""
-    n = x.shape[0]
-    if n > MAX_KERNEL_N:
-        raise NotImplementedError(
-            f"NTT of {n} > {MAX_KERNEL_N} points on the card needs the "
-            "four-step glue (ROADMAP queue B: _four_step_pallas), not ported yet"
-        )
-    if x.shape[-1] != L.NLIMB or n < 2 or n & (n - 1):
-        raise ValueError(f"ntt_kernel: bad shape {tuple(x.shape)}")
-    rows = x.movedim(0, -2).contiguous()  # [*batch, n, 8]
-    _build.check_cuda_tensor(rows, "ntt_kernel x", L.DTYPE)
-    out = torch.empty_like(rows)
-    tw = _twiddles_u32(root_int, n, str(x.device))
-    batch = rows.numel() // (n * L.NLIMB)
-    if batch:
-        NTT_KERNEL(
-            rows.data_ptr(), out.data_ptr(), tw.data_ptr(),
-            n.bit_length() - 1, batch, _build.stream_ptr(x.device),
-        )
-    return out.movedim(-2, 0)
+    two, 2 <= n <= MAX_KERNEL_N ** 2); returns a new tensor of the same
+    shape.  One launch up to MAX_KERNEL_N points, two (the four-step) above."""
+    batch = _batch(x, "ntt_kernel")
+    if x.shape[0] > MAX_KERNEL_N and batch > 65535:
+        raise ValueError(f"ntt_kernel: four-step batch {batch} exceeds the grid's y limit")
+    x = x.contiguous()
+    _build.check_cuda_tensor(x, "ntt_kernel x", L.DTYPE)
+    if batch == 0:
+        return torch.empty_like(x)
+    return _run_passes(x, batch, root_int, _launch_pass)
+
+
+def ntt_passes_plain(x: torch.Tensor, root_int: int) -> torch.Tensor:
+    """The plain version of :func:`ntt_kernel`: the same passes, strides and
+    tables, each pass in tensor code (:func:`_plain_pass`); any device."""
+    batch = _batch(x, "ntt_passes_plain")
+    if batch == 0:
+        return torch.empty_like(x)
+    return _run_passes(x.contiguous(), batch, root_int, _plain_pass)
 
 
 def _transform(x: torch.Tensor, root_int: int) -> torch.Tensor:
     if x.is_cuda:
         return ntt_kernel(x, root_int)
     _build.check_device(x, "ntt_mont")
-    return ntt_plain(x, root_int)
+    return ntt_passes_plain(x, root_int)
 
 
 def _pad_pow2(x: torch.Tensor) -> torch.Tensor:

@@ -314,13 +314,63 @@ def _power_table(points: torch.Tensor, n: int) -> torch.Tensor:
     return pows[:n]
 
 
-def evaluate_many(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Dense polynomial [n, 8] at points [k, 8] -> [k, 8], by Horner's rule
-    (the verifier's polynomials have at most a few dozen coefficients)."""
-    acc = torch.zeros_like(points)
-    for c in coeffs.flip(0):
-        acc = L.add_mod(L.mont_mul(acc, points), c)
+#: coefficient count from which evaluation leaves Horner's rule (one
+#: dependent Montgomery product per coefficient) for the log-depth form; the
+#: JAX package's ``_PARALLEL_EVAL_MIN``
+PARALLEL_EVAL_MIN = 513
+
+#: most [coefficient, point] products of one block of the log-depth form:
+#: 2^22 elements keep the Montgomery product's [..., 64] temporary at 2 GB
+_EVAL_BLOCK = 1 << 22
+
+
+def _evaluate_horner(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """coeffs [nb, n, 8] at points [k, 8] -> [nb, k, 8]: n dependent steps,
+    all polynomials at once."""
+    acc = torch.zeros((coeffs.shape[0],) + tuple(points.shape), dtype=L.DTYPE,
+                      device=points.device)
+    for j in range(coeffs.shape[1] - 1, -1, -1):
+        acc = L.add_mod(L.mont_mul(acc, points), coeffs[:, j].unsqueeze(1))
     return acc
+
+
+def _evaluate_parallel(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """coeffs [nb, n, 8] at points [k, 8] -> [nb, k, 8] at log depth: the
+    powers x^0..x^(n-1) by doubling, then every coefficient-power product
+    and a tree sum.  The products are taken in blocks of coefficients
+    (at most ``_EVAL_BLOCK`` products each, so at the chain's
+    [4, 86400] x 128 points the peak stays a few GB instead of ~25 GB) and
+    the blocks' sums added; field sums are exact, so this equals the JAX
+    package's single zero-padded tree sum."""
+    nb, n = coeffs.shape[0], coeffs.shape[1]
+    k = points.shape[0]
+    pows = _power_table(points, n)  # [n, k, 8]
+    step = max(1, _EVAL_BLOCK // (nb * k))
+    acc = None
+    for j in range(0, n, step):
+        prods = L.mont_mul(pows[j : j + step], coeffs[:, j : j + step].unsqueeze(2))
+        part = _tree_sum(prods, dim=1)  # [nb, k, 8]
+        acc = part if acc is None else L.add_mod(acc, part)
+    return acc
+
+
+def evaluate_polys_shared(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Polynomials coeffs [nb, n, 8] at shared points [k, 8] -> [nb, k, 8]:
+    Horner's rule below :data:`PARALLEL_EVAL_MIN` coefficients, the
+    log-depth form from there (the verifier's transition zerofier and the
+    chain's round-constant polynomials)."""
+    nb, n = coeffs.shape[0], coeffs.shape[1]
+    if n == 0:
+        return torch.zeros((nb,) + tuple(points.shape), dtype=L.DTYPE,
+                           device=points.device)
+    if n >= PARALLEL_EVAL_MIN:
+        return _evaluate_parallel(coeffs, points)
+    return _evaluate_horner(coeffs, points)
+
+
+def evaluate_many(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Dense polynomial [n, 8] at points [k, 8] -> [k, 8]."""
+    return evaluate_polys_shared(coeffs.unsqueeze(0), points)[0]
 
 
 def mpoly_evaluate_codewords(

@@ -268,36 +268,37 @@ class Stark:
     ) -> bytes:
         ps = proof_stream if proof_stream is not None else ProofStream(self.field)
 
-        # concatenate randomizers - induces zero knowledge
-        trace = [list(row) for row in trace]
-        for _ in range(self.num_randomizers):
-            trace.append(
-                [
-                    self.field.sample(self._rng(17)).value
-                    for _ in range(self.num_registers)
-                ]
-            )
-        randomized_trace_length = len(trace)
+        with record_function("stark.host_inputs"):
+            # concatenate randomizers - induces zero knowledge
+            trace = [list(row) for row in trace]
+            for _ in range(self.num_randomizers):
+                trace.append(
+                    [
+                        self.field.sample(self._rng(17)).value
+                        for _ in range(self.num_registers)
+                    ]
+                )
+            randomized_trace_length = len(trace)
 
-        boundary_interpolants = self.boundary_interpolants(boundary)
-        boundary_zerofiers = self.boundary_zerofiers(boundary)
-        transition_constraints_degree = self.max_degree(transition_constraints)
-        randomizer_ints = [
-            self.field.sample(self._rng(17)).value
-            for _ in range(transition_constraints_degree + 1)
-        ]
+            boundary_interpolants = self.boundary_interpolants(boundary)
+            boundary_zerofiers = self.boundary_zerofiers(boundary)
+            transition_constraints_degree = self.max_degree(transition_constraints)
+            randomizer_ints = [
+                self.field.sample(self._rng(17)).value
+                for _ in range(transition_constraints_degree + 1)
+            ]
 
-        m = self.num_registers
-        dev = self.device
-        trace_cols = L.ints_to_mont(
-            [row[s] for s in range(m) for row in trace], dev
-        ).reshape(m, randomized_trace_length, L.NLIMB)
-        bi_arrs = [
-            L.ints_to_mont(bi.coeffs if bi.coeffs else [0], dev)
-            for bi in boundary_interpolants
-        ]
-        bz_arrs = [L.ints_to_mont(bz.coeffs, dev) for bz in boundary_zerofiers]
-        rand_arr = L.ints_to_mont(randomizer_ints, dev)
+            m = self.num_registers
+            dev = self.device
+            trace_cols = L.ints_to_mont(
+                [row[s] for s in range(m) for row in trace], dev
+            ).reshape(m, randomized_trace_length, L.NLIMB)
+            bi_arrs = [
+                L.ints_to_mont(bi.coeffs if bi.coeffs else [0], dev)
+                for bi in boundary_interpolants
+            ]
+            bz_arrs = [L.ints_to_mont(bz.coeffs, dev) for bz in boundary_zerofiers]
+            rand_arr = L.ints_to_mont(randomizer_ints, dev)
 
         air = as_air(transition_constraints)
         with record_function("stark.segment1"):
