@@ -27,7 +27,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    for the median time), one verify, one verify against a wrong output
    that must be rejected; the proof is 3,430,752 bytes; then one more warm
    prove under torch.profiler;
-8. the numbers, the card line, the kernel table as one JSON line, and last
+8. the hash-rate yardsticks: the chained Montgomery product (n = 2^18,
+   k = 32, the JAX bench's calibration) and the bare BLAKE2b compression
+   (2^18 messages: the bench's digest-twice message, and random words with
+   random byte counts), each bit for bit against its plain version, the
+   compressions on 64 samples against hashlib; each entry point driven
+   with the counts reset just before and read just after; x^(k+1) checked
+   at k = 32 and 1024; the time per product and per compression (and, as a
+   diagnostic, the compiled instructions per product from the SASS);
+9. the batched Rescue-Prime hash (RescuePrime.hash_batch_device, the JAX
+   package's entry() workload) at 256 (entry()'s inputs), 2^14 and 2^20
+   random inputs, launches counted; the kernel bit for bit against the
+   plain version at 256 and 2^14, the host hash on all 256 and on 68
+   sampled inputs at 2^20, hash(1) against the test vector; times, hashes
+   per second and both ceilings (products x measured time per product;
+   the instructions counted from field.cuh's product, mont_mul_ops, and
+   the additions, over the issue rate);
+10. the numbers, the card line, the kernel table as one JSON line, and last
    the result line {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -38,6 +54,8 @@ from __future__ import annotations
 import hashlib
 import json
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,6 +69,7 @@ sys.path.insert(0, str(ROOT))
 from zk_stark_tpu_torch.carry import DetRng, chain_from_config, rpsss_from_config  # noqa: E402
 from zk_stark_tpu_torch.field import Field  # noqa: E402
 from zk_stark_tpu_torch.models.rescue_chain import make_chain_stark  # noqa: E402
+from zk_stark_tpu_torch.models.rescue_prime import RescuePrime  # noqa: E402
 from zk_stark_tpu_torch.models.rpsss import RPSSS  # noqa: E402
 from zk_stark_tpu_torch.proof_stream import ProofStream  # noqa: E402
 from zk_stark_tpu_torch.stark import VerificationError  # noqa: E402
@@ -58,7 +77,9 @@ from zk_stark_tpu_torch.ops import _build  # noqa: E402
 from zk_stark_tpu_torch.ops import blake2b as B  # noqa: E402
 from zk_stark_tpu_torch.ops import fold as FO  # noqa: E402
 from zk_stark_tpu_torch.ops import limbs as L  # noqa: E402
+from zk_stark_tpu_torch.ops import montmul_chain as MC  # noqa: E402
 from zk_stark_tpu_torch.ops import ntt as N  # noqa: E402
+from zk_stark_tpu_torch.ops import rescue_ops as R  # noqa: E402
 
 #: HBM bytes/s of one H100 SXM (published datasheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -69,12 +90,35 @@ HBM_BYTES_PER_S = 3.35e12
 #: is a ceiling of the integer rate and the bound derived from it a floor
 ISSUE_LANES_PER_SM = 128
 
+
+
+def mont_mul_ops() -> int:
+    """32-bit integer instructions one Montgomery product needs, counted
+    from csrc/field.cuh's CIOS with p's words (1, 0, 0, 0xCB800000).
+
+    A multiply-add gives one half of a wide product and folds the
+    accumulation and its carry in (PTX mad.lo.cc / madc.hi.cc); an add
+    with carry, a subtract with borrow or a select is one instruction.
+    Per word b[i] of the multiplier: the row a * b[i] is 4 low and 4 high
+    halves and the carries into t[4] and t[5] (10); the reduction is
+    m = -t[0] (1), one instruction for each word of p that is 0 or 1 (a
+    carry, an add), two for each other word (its two halves), and the carry
+    into t[4] (1).  Then the conditional subtraction of p: 4 subtracts with
+    borrow, 3 for the flag, 4 selects.  The same count for every kernel's
+    bound; the compiled code's count is a separate diagnostic
+    (:func:`sass_ops_per_product`).
+    """
+    words = [(L.P >> (32 * k)) & 0xFFFFFFFF for k in range(4)]
+    row = 2 * 4 + 2
+    reduction = 1 + sum(1 if w in (0, 1) else 2 for w in words) + 1
+    return 4 * (row + reduction) + 4 + 3 + 4
+
+
 #: 32-bit integer instructions per field operation on 4 words of 32 bits
-#: (CIOS product: 16 wide products = 32 multiplies plus ~45 carry adds and
-#: the reduction's multiplies; add/sub: 4 add-with-carry, 4 subtract, 4
-#: selects and flags) and per BLAKE2b compression (96 G mixes of 6 64-bit
+#: (product: 79, see mont_mul_ops; add/sub: 4 add-with-carry, 4 subtract,
+#: 4 selects and flags) and per BLAKE2b compression (96 G mixes of 6 64-bit
 #: adds, 4 xors and 4 rotates, 2 instructions each, plus finalisation)
-MONT_MUL_OPS = 80
+MONT_MUL_OPS = mont_mul_ops()
 ADD_SUB_OPS = 16
 COMPRESS_OPS = 96 * 28 + 16
 DECIMAL_OPS = 600  # 20 128-bit divisions by 10^9, 45 digits, packing
@@ -84,6 +128,22 @@ MAIN_PROOF_BYTES = 1_156_888
 #: the JAX package's proof length for it (CHAIN_FULL_r04.json)
 CHAIN_LENGTH = 3200
 CHAIN_PROOF_BYTES = 3_430_752
+
+#: the chained-product and compression yardsticks at the JAX bench's sizes
+#: (bench.py:162, 199, 249)
+CHAIN_N, CHAIN_K = 1 << 18, 32
+#: a chain long enough that launch and ramp do not count: the sustained rate
+CHAIN_K_LONG = 1024
+COMPRESS_N = 1 << 18
+#: entry()'s batch, bench_rescue_batch's, and the leaf count of a chain-3200
+#: codeword
+RESCUE_SIZES = (256, 1 << 14, 1 << 20)
+RESCUE_HASH_1 = 244180265933090377212304188905974087294  # tests/test_rescue.py
+#: SASS opcodes that are not the arithmetic of a product: memory, control,
+#: special-register reads
+NON_ARITH = {"LDG", "STG", "LD", "ST", "LDS", "STS", "LDL", "STL", "LDC", "ULDC",
+             "BRA", "EXIT", "BAR", "NOP", "RET", "CALL", "BSSY", "BSYNC",
+             "WARPSYNC", "JMP", "S2R", "S2UR", "CS2R"}
 
 
 def require(cond, message: str) -> None:
@@ -465,6 +525,220 @@ def chain_path(dev, kernels) -> dict:
     return result
 
 
+def pow_products(e: int, windowed: bool = False) -> int:
+    """Montgomery products that ``limbs.mont_pow`` (or, with ``windowed``,
+    ``limbs.mont_pow_windowed`` and the Rescue kernel's inverse S-box)
+    spends on the exponent ``e``."""
+    if e == 0:
+        return 0
+    if windowed and e.bit_length() > L.POW_UNROLL_BITS:
+        digits = L.window_digits(e)
+        return ((1 << L.POW_WINDOW) - 2 + L.POW_WINDOW * (len(digits) - 1)
+                + sum(1 for d in digits[1:] if d))
+    return e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def permutation_counts(m: int, n_rounds: int, alpha: int, alpha_inv: int) -> tuple[int, int]:
+    """(Montgomery products, modular additions) of one Rescue permutation,
+    as both versions compute it: per round and register the two S-boxes;
+    two m x m MDS products, m - 1 additions a row; two additions of
+    constants."""
+    sboxes = pow_products(alpha) + pow_products(alpha_inv, windowed=True)
+    return n_rounds * (m * sboxes + 2 * m * m), n_rounds * 2 * (m * (m - 1) + m)
+
+
+def sass_ops_per_product() -> float:
+    """Integer instructions of one Montgomery product as compiled, counted
+    in the SASS of ``montmul_chain_kernel``: every instruction apart from
+    memory, control and special-register reads, over the 33 product bodies
+    the kernel compiles (the unrolled 32 and the tail's one).  Moves, the
+    loads' and stores' limb repacking and the loop are counted too.  A
+    diagnostic of the code generation beside :data:`MONT_MUL_OPS`, never a
+    bound."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run(
+        [tool, "-sass", "-fun", "montmul_chain_kernel",
+         str(_build.library_path("montmul_chain"))],
+        check=True, capture_output=True, text=True, timeout=120,
+    ).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", out)
+    arith = [op for op in ops if op.split(".")[0] not in NON_ARITH]
+    require(len(ops) > 33 * 40, f"SASS of montmul_chain_kernel: only {len(ops)} instructions")
+    return len(arith) / 33
+
+
+def timed_once(fn):
+    """(fn(), its device time in ms) for one call, with CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def montmul_chain_phase(dev, int_rate: float) -> dict:
+    """Phase 8a: the chained product, the card's measured product rate."""
+    gen = torch.Generator().manual_seed(42)
+    x = random_mont(CHAIN_N, gen, dev)
+    plain, p_ms = timed_once(lambda: MC.mont_mul_chain_plain(x, CHAIN_K))
+    err = check(f"montmul_chain n={CHAIN_N} k={CHAIN_K}", MC.mont_mul_chain_kernel(x, CHAIN_K), plain)
+    probe_vals = (2, 3, L.P - 1)
+    probe = L.ints_to_mont(probe_vals, dev)
+    for k in (CHAIN_K, CHAIN_K_LONG):
+        require([int(v) for v in L.mont_to_ints(MC.mont_mul_chain_kernel(probe, k))]
+                == [pow(v, k + 1, L.P) for v in probe_vals],
+                f"montmul_chain k={k}: y is not x^(k+1)")
+
+    MC.MONTMUL_CHAIN_KERNEL.launches = 0
+    MC.mont_mul_chain(x, CHAIN_K)
+    torch.cuda.synchronize()
+    launches = MC.MONTMUL_CHAIN_KERNEL.launches
+
+    k_ms = time_ms(lambda: MC.mont_mul_chain_kernel(x, CHAIN_K))
+    long_ms = time_ms(lambda: MC.mont_mul_chain_kernel(x, CHAIN_K_LONG), reps=5, runs=3)
+    products = CHAIN_N * CHAIN_K
+    sass = sass_ops_per_product()
+    bound = bound_ms(2 * CHAIN_N * 64, products * MONT_MUL_OPS, int_rate)
+    row = dict(kernel=MC.MONTMUL_CHAIN_KERNEL, source="zk_stark_tpu_torch/csrc/montmul_chain.cu",
+               launches=launches, max_abs_err=err, shape=f"n={CHAIN_N},k={CHAIN_K}",
+               ms=k_ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
+               ops_per_product=MONT_MUL_OPS, sass_ops_per_product=sass,
+               ns_per_product=k_ms * 1e6 / products,
+               ns_per_product_long=long_ms * 1e6 / (CHAIN_N * CHAIN_K_LONG))
+    print(f"montmul_chain n={CHAIN_N} k={CHAIN_K}: bit-exact, x^(k+1) at k={CHAIN_K} and "
+          f"{CHAIN_K_LONG}; kernel {k_ms:.4f} ms "
+          f"({row['ns_per_product']:.6f} ns/product; {row['ns_per_product_long']:.6f} at "
+          f"k={CHAIN_K_LONG}), plain {p_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}, "
+          f"{MONT_MUL_OPS} instructions/product), {sass:.2f} SASS instructions/product as "
+          f"compiled, launches {launches}", flush=True)
+    return row
+
+
+def compress_phase(dev, int_rate: float) -> dict:
+    """Phase 8b: bare compressions, the card's measured compression rate."""
+    gen = torch.Generator().manual_seed(43)
+    n = COMPRESS_N
+    # the bench's message: a digest twice (t = 128)
+    dig = torch.randint(0, 1 << 32, (2, 8, n), dtype=L.DTYPE, generator=gen).to(dev)
+    bench_msg = (torch.cat([dig[0], dig[0]]), torch.cat([dig[1], dig[1]]),
+                 torch.full((n,), 128, dtype=L.DTYPE, device=dev))
+    # random words, random byte counts in [0, 128], zero beyond the count
+    t = torch.randint(0, 129, (n,), dtype=L.DTYPE, generator=gen)
+    t[:5] = torch.tensor([0, 1, 40, 127, 128])
+    raw = torch.randint(0, 256, (n, 128), dtype=torch.uint8, generator=gen)
+    raw[torch.arange(128)[None, :] >= t[:, None]] = 0
+    rand_msg = (*B._bytes_to_words(raw.to(dev)), t.to(dev))
+
+    err = 0
+    plain_ms = {}
+    for kind, msg in (("bench", bench_msg), ("random", rand_msg)):
+        (ph, pl), plain_ms[kind] = timed_once(lambda: B.compress_plain(*msg))
+        kh, kl = B.compress_kernel(*msg)
+        err = max(err, check(f"compress {kind} n={n} hi", kh, ph), check(f"compress {kind} lo", kl, pl))
+        if kind == "random":
+            idx = torch.cat([torch.arange(5), torch.randint(5, n, (59,), generator=gen)])
+            digests = B.words_to_digest_np(kh[:, idx.to(dev)], kl[:, idx.to(dev)])
+            for row_i, i in enumerate(idx.tolist()):
+                msg_bytes = raw[i, : int(t[i])].numpy().tobytes()
+                require(digests[row_i].tobytes()
+                        == hashlib.blake2b(msg_bytes, digest_size=64).digest(),
+                        f"compress: message {i} (t = {int(t[i])}) differs from hashlib")
+
+    B.COMPRESS_KERNEL.launches = 0
+    B.compress_words(*bench_msg)
+    B.compress_words(*rand_msg)
+    B.node_digests_packed(torch.cat([dig, dig], dim=2))
+    torch.cuda.synchronize()
+    launches = B.COMPRESS_KERNEL.launches
+
+    k_ms = time_ms(lambda: B.compress_kernel(*bench_msg))
+    k_rand_ms = time_ms(lambda: B.compress_kernel(*rand_msg))
+    bound = bound_ms((16 * 2 + 1 + 8 * 2) * 8 * n, n * COMPRESS_OPS, int_rate)
+    row = dict(kernel=B.COMPRESS_KERNEL, source="zk_stark_tpu_torch/csrc/blake2b.cu",
+               launches=launches, max_abs_err=err, shape=f"messages={n}", ms=k_ms,
+               plain_ms=plain_ms["bench"], bound_ms=bound[0], bound_by=bound[1],
+               ns_per_compression=k_ms * 1e6 / n, random_ms=k_rand_ms,
+               random_plain_ms=plain_ms["random"])
+    print(f"compress messages={n}: bit-exact (bench and random messages), 64 samples equal "
+          f"hashlib (t = 0, 1, 40, 127, 128 among them); kernel {k_ms:.4f} ms "
+          f"({row['ns_per_compression']:.6f} ns/compression), random messages {k_rand_ms:.4f} ms, "
+          f"plain {plain_ms['bench']:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}), "
+          f"launches {launches}", flush=True)
+    return row
+
+
+def rescue_phase(dev, int_rate: float, ns_per_product: float, sass_per_product: float) -> dict:
+    """Phase 9: the batched Rescue-Prime hash at 256, 2^14 and 2^20."""
+    rp = RescuePrime(Field())
+    gen = torch.Generator().manual_seed(44)
+    inputs = {256: L.ints_to_mont(range(256), dev)}
+    for n in RESCUE_SIZES[1:]:
+        inputs[n] = random_mont(n, gen, dev)
+
+    R.RESCUE_KERNEL.launches = 0
+    outs = {n: rp.hash_batch_device(x) for n, x in inputs.items()}
+    torch.cuda.synchronize()
+    launches = R.RESCUE_KERNEL.launches
+    require(launches == len(RESCUE_SIZES),
+            f"rescue_kernel: {launches} launches for {len(RESCUE_SIZES)} hash_batch_device calls")
+
+    require([int(v) for v in L.mont_to_ints(outs[256])] == [rp.hash(x) for x in range(256)],
+            "hash_batch_device(range(256)) differs from the host hash")
+    big = RESCUE_SIZES[-1]
+    idx = torch.cat([torch.arange(4), torch.randint(4, big, (64,), generator=gen)]).to(dev)
+    xs = L.mont_to_ints(inputs[big][idx])
+    ys = L.mont_to_ints(outs[big][idx])
+    require([int(y) for y in ys] == [rp.hash(int(x)) for x in xs],
+            f"hash_batch_device at {big} differs from the host hash on the samples")
+    require(rp.hash_batch([1], device=dev) == [RESCUE_HASH_1], "hash(1) differs from the vector")
+
+    mds, rc = rp._device_constants(dev)
+    per_hash, adds_per_hash = permutation_counts(rp.m, rp.N, rp.alpha, rp.alpha_inv)
+    ops_per_hash = per_hash * MONT_MUL_OPS + adds_per_hash * ADD_SUB_OPS
+    row = dict(kernel=R.RESCUE_KERNEL, source="zk_stark_tpu_torch/csrc/rescue.cu",
+               launches=launches, launches_per_hash_batch=launches / len(RESCUE_SIZES),
+               max_abs_err=0, products_per_hash=per_hash, adds_per_hash=adds_per_hash,
+               ops_per_hash=ops_per_hash, by_size={})
+    for n, x in inputs.items():
+        size = {}
+        if n < RESCUE_SIZES[-1]:
+            state = torch.cat([x.unsqueeze(1), torch.zeros_like(x).unsqueeze(1)], dim=1)
+            plain, size["plain_ms"] = timed_once(
+                lambda: R.permutation_plain(state, mds, rc, rp.N, rp.alpha, rp.alpha_inv))
+            got = R.permutation_kernel(state, mds, rc, rp.N, rp.alpha, rp.alpha_inv)
+            row["max_abs_err"] = max(row["max_abs_err"], check(f"rescue n={n}", got, plain))
+            require(torch.equal(got[:, 0], outs[n]), f"rescue n={n}: hash_batch_device differs")
+        reps, runs = (20, 5) if n < RESCUE_SIZES[-1] else (3, 3)
+        size["ms"] = time_ms(lambda: rp.hash_batch_device(x), reps=reps, runs=runs)
+        products = n * per_hash
+        size["hashes_per_s"] = n / size["ms"] * 1e3
+        size["ceiling_measured_ms"] = products * ns_per_product * 1e-6
+        size["ceiling_issue_ms"] = n * ops_per_hash / int_rate * 1e3
+        size["ceiling_sass_ms"] = products * sass_per_product / int_rate * 1e3
+        size["bound_ms"], size["bound_by"] = max(
+            (2 * n * rp.m * 64 / HBM_BYTES_PER_S * 1e3, "bytes"),
+            (size["ceiling_issue_ms"], "operations"))
+        row["by_size"][f"n={n}"] = size
+        plain_txt = f"{size['plain_ms']:.1f} ms" if "plain_ms" in size else "not timed"
+        print(f"rescue n={n}: kernel {size['ms']:.4f} ms ({size['hashes_per_s']:.4e} hashes/s), "
+              f"plain {plain_txt}, ceilings: measured-rate "
+              f"{size['ceiling_measured_ms']:.4f} ms, issue-rate {size['ceiling_issue_ms']:.4f} ms "
+              f"({products:.4e} products; at the compiled SASS count "
+              f"{size['ceiling_sass_ms']:.4f} ms)", flush=True)
+    # the headline is the largest size the plain version is timed at (at
+    # 2^20 it would take minutes: ~4,700 tensor-code products of ~75 launches
+    # on [2^20, 2, 8])
+    head = row["by_size"][f"n={RESCUE_SIZES[1]}"]
+    row.update(shape=f"n={RESCUE_SIZES[1]}", ms=head["ms"], plain_ms=head["plain_ms"],
+               bound_ms=head["bound_ms"], bound_by=head["bound_by"])
+    print("rescue batch " + json.dumps({k: v for k, v in row.items() if k != "kernel"}),
+          flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: the port's smoke test needs an NVIDIA card", file=sys.stderr)
@@ -475,8 +749,9 @@ def main() -> int:
 
     rpsss_kernels = [N.NTT_KERNEL, FO.FOLD_KERNEL, B.LEAF_KERNEL, B.NODE_KERNEL]
     chain_kernels = rpsss_kernels + [N.NTT_TW_KERNEL]
+    hash_kernels = [MC.MONTMUL_CHAIN_KERNEL, B.COMPRESS_KERNEL, R.RESCUE_KERNEL]
     t0 = time.perf_counter()
-    logs = _build.build(sorted({k.library for k in chain_kernels}))
+    logs = _build.build(sorted({k.library for k in chain_kernels + hash_kernels}))
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
         ptxas = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -491,16 +766,28 @@ def main() -> int:
     main["profile"] = profile_phase(*signer)
     chain_fixture_phase(dev)
     chain = chain_path(dev, chain_kernels)
+    mm = montmul_chain_phase(dev, int_rate)
+    comp = compress_phase(dev, int_rate)
+    rescue = rescue_phase(dev, int_rate, mm["ns_per_product"], mm["sass_ops_per_product"])
+    # the leaf and node rows beside the measured compression rate
+    for name in ("leaf", "node"):
+        for size, entry in rows[name]["by_size"].items():
+            count = int(size.split("=")[1])
+            entry["compress_ceiling_ms"] = count * comp["ns_per_compression"] * 1e-6
+        rows[name]["compress_ceiling_ms"] = entry["compress_ceiling_ms"]
+    for row in rows.values():
+        row["launches"] = chain["launches"][row["kernel"].symbol]
+    rows.update(montmul_chain=mm, compress=comp, rescue=rescue)
 
     table = []
     for name, row in rows.items():
         k = row["kernel"]
-        table.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": row["source"],
             "replaces": k.replaces,
-            "launches": chain["launches"][k.symbol],
+            "launches": row["launches"],
             "launches_rpsss_sign": main["launches"].get(k.symbol, 0),
             "max_abs_err": row["max_abs_err"],
             "bit_exact": row["max_abs_err"] == 0,
@@ -511,8 +798,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
-            "by_size": row["by_size"],
-        })
+        }
+        entry.update({key: v for key, v in row.items() if key not in entry and key != "kernel"})
+        table.append(entry)
     print(json.dumps({"main_path": main, "chain_path": chain, "card": card,
                       "build_s": build_s, "int32_ops_per_s": int_rate}))
     print(f"card: {card}")

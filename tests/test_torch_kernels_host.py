@@ -20,10 +20,13 @@ import torch
 
 from zk_stark_tpu_torch.field import FIELD_PRIME as P
 from zk_stark_tpu_torch.field import Field
+from zk_stark_tpu_torch.models.rescue_prime import RescuePrime
 from zk_stark_tpu_torch.ops import blake2b as B
 from zk_stark_tpu_torch.ops import fold as FO
 from zk_stark_tpu_torch.ops import limbs as L
+from zk_stark_tpu_torch.ops import montmul_chain as MC
 from zk_stark_tpu_torch.ops import ntt as N
+from zk_stark_tpu_torch.ops import rescue_ops as R
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "zk_stark_tpu_torch" / "csrc"
 F = Field()
@@ -42,6 +45,9 @@ static inline void __syncthreads() {}
 Fe4 sh[1 << 12];
 #include "fold.cu"
 #include "blake2b.cu"
+#include "rescue.cu"
+uint32_t rescue_smem[1 << 14];
+#include "montmul_chain.cu"
 
 static void grid(unsigned blocks) { blockDim.x = 1; threadIdx.x = 0; blockIdx.y = 0; (void)blocks; }
 extern "C" void host_ntt(const int64_t* x, int64_t* y, const uint32_t* tw, const uint32_t* ft,
@@ -67,6 +73,25 @@ extern "C" void host_node(const uint8_t* level, uint8_t* out, int m) {
   grid(m);
   for (int i = 0; i < m; ++i) { blockIdx.x = i; node_kernel(level, out, m); }
 }
+extern "C" void host_compress(const int64_t* mh, const int64_t* ml, const int64_t* t,
+                              int64_t* oh, int64_t* ol, int n) {
+  grid(n);
+  for (int i = 0; i < n; ++i) { blockIdx.x = i; compress_kernel(mh, ml, t, oh, ol, n); }
+}
+extern "C" void host_rescue(const int64_t* st, int64_t* out, const int64_t* mds,
+                            const int64_t* rc, int n, int rounds, const uint32_t* a, int a_bits,
+                            const uint32_t* ai, int ai_bits) {
+  grid(n);
+  Exp alpha{{a[0], a[1], a[2], a[3]}, a_bits}, alpha_inv{{ai[0], ai[1], ai[2], ai[3]}, ai_bits};
+  for (int i = 0; i < n; ++i) {
+    blockIdx.x = i;
+    rescue_kernel(st, out, mds, rc, n, rounds, alpha, alpha_inv);
+  }
+}
+extern "C" void host_chain(const int64_t* x, int64_t* y, int n, int k) {
+  grid(n);
+  for (int i = 0; i < n; ++i) { blockIdx.x = i; montmul_chain_kernel(x, y, n, k); }
+}
 """
 
 
@@ -86,6 +111,11 @@ def lib(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(so))
     lib.host_ntt.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 6
+    lib.host_compress.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
+    words = ctypes.POINTER(ctypes.c_uint32)
+    lib.host_rescue.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                                + [words, ctypes.c_int, words, ctypes.c_int])
+    lib.host_chain.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
     return lib
 
 
@@ -167,3 +197,50 @@ def test_leaf_and_node_kernel_sources(lib):
     parents = torch.empty((len(vals) // 2, 64), dtype=torch.uint8)
     lib.host_node(*_ptrs(leaves, parents), len(vals) // 2)
     assert torch.equal(parents, B.node_digests_plain(leaves))
+
+
+def test_compress_kernel_source(lib):
+    """64 messages of random words, random byte counts in [0, 128], zero
+    beyond each count."""
+    n = 64
+    rng = np.random.default_rng(5)
+    t = rng.integers(0, 129, size=n)
+    t[:3] = (0, 1, 128)
+    raw = rng.integers(0, 256, size=(n, 128), dtype=np.uint8)
+    raw[np.arange(128)[None, :] >= t[:, None]] = 0
+    mh, ml = B._bytes_to_words(torch.from_numpy(raw))
+    tt = torch.from_numpy(t.astype(np.int64))
+    oh = torch.empty((8, n), dtype=L.DTYPE)
+    ol = torch.empty_like(oh)
+    lib.host_compress(*_ptrs(mh, ml, tt, oh, ol), n)
+    want_h, want_l = B.compress_plain(mh, ml, tt)
+    assert torch.equal(oh, want_h) and torch.equal(ol, want_l)
+
+
+@pytest.mark.parametrize("k", [32, 37])
+def test_montmul_chain_kernel_source(lib, k):
+    x = _rand_mont(6, 64)
+    y = torch.empty_like(x)
+    lib.host_chain(*_ptrs(x, y), 64, k)
+    assert torch.equal(y, MC.mont_mul_chain_plain(x, k))
+
+
+@pytest.mark.parametrize(
+    "alpha, alpha_inv, rounds",
+    [(None, None, 27), (0, 77, 2), (5, (1 << 9) + 3, 2)],
+    ids=["default-27-rounds", "alpha0-short-inverse", "9-bit-inverse"],
+)
+def test_rescue_kernel_source(lib, alpha, alpha_inv, rounds):
+    """4 random full states through the rounds: the default instance's
+    exponents over all 27, then exponents that reach the kernel's other
+    branches (alpha = 0, an inverse exponent of 7 and of 10 bits)."""
+    rp = RescuePrime(F)
+    alpha = rp.alpha if alpha is None else alpha
+    alpha_inv = rp.alpha_inv if alpha_inv is None else alpha_inv
+    mds, rc = rp._device_constants("cpu")
+    state = _rand_mont(7, 8).reshape(4, 2, L.NLIMB)
+    out = torch.empty_like(state)
+    a_words, a_bits = R._exponent(alpha, "alpha")
+    ai_words, ai_bits = R._exponent(alpha_inv, "alpha_inv")
+    lib.host_rescue(*_ptrs(state, out, mds, rc), 4, rounds, a_words, a_bits, ai_words, ai_bits)
+    assert torch.equal(out, R.permutation_plain(state, mds, rc, rounds, alpha, alpha_inv))

@@ -34,6 +34,21 @@ def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.uint32)
 
 
+def rescue_constants_from_jax(mds_u32: np.ndarray, rc_u32: np.ndarray, device="cuda"):
+    """The JAX package's ``RescuePrime._device_constants()`` (as numpy:
+    MDS ``uint32[m, m, 8]``, round constants ``uint32[2Nm, 8]``, Montgomery
+    limbs) -> the port's tensors on ``device``, the layout of the port's
+    own ``RescuePrime._device_constants(device)``."""
+    mds = limbs_from_numpy(mds_u32, device)
+    rc = limbs_from_numpy(rc_u32, device)
+    if mds.ndim != 3 or mds.shape[0] != mds.shape[1] or rc.ndim != 2:
+        raise ValueError(
+            f"expected mds [m, m, 8] and round constants [k, 8], got "
+            f"{tuple(mds.shape)} and {tuple(rc.shape)}"
+        )
+    return mds, rc
+
+
 def rpsss_from_config(
     meta_config: dict, device="cuda", rng: Callable[[int], bytes] = os.urandom
 ) -> RPSSS:

@@ -1,11 +1,13 @@
-// BLAKE2b-512 Merkle hashing: leaves and inner nodes.
+// BLAKE2b-512 Merkle hashing: leaves, inner nodes, and bare compressions.
 //
 // Replaces: _leaf_fused_kernel (zk_stark_tpu/ops/blake2b_dev.py:373, with
 // _leaf_tile :315 and _compress :152), launched by _leaf_fused_call (:420);
-// and _node_split_kernel (:383), launched by _node_split_call (:449).
+// _node_split_kernel (:383), launched by _node_split_call (:449); and
+// _compress_pallas_kernel (:224), launched by _compress_call (:260) through
+// _compress_words (:277).
 //
-// Both messages fit one compression block, so each digest is one final-block
-// BLAKE2b-512 compression (RFC 7693):
+// Every message fits one compression block, so each digest is one
+// final-block BLAKE2b-512 compression (RFC 7693):
 //
 // * leaf: the canonical field element's decimal string, left-aligned, as
 //   the message (value 0 is "0"); t = number of digits.  Byte-identical to
@@ -14,6 +16,11 @@
 //   levels are in natural order, so the two children are one contiguous
 //   128-byte run: the TPU kernel's bit-reversed "split" layout was a Mosaic
 //   lowering workaround and is not needed here.
+// * compress: any 16 message words and byte count t (0 <= t <= 128), as
+//   (hi, lo) 32-bit halves of each little-endian 64-bit word in int64
+//   planes [16, n] (the JAX package's [16, m] uint32 pair), digest halves
+//   out as [8, n].  Word k of message i sits at k * n + i, so the threads of
+//   a warp read and write neighbouring words.
 //
 // The TPU carried each 64-bit word as two 32-bit halves; Hopper has native
 // 64-bit adds and rotates (funnel shifts), so the state is 16 uint64_t in
@@ -27,7 +34,10 @@
 // that is 32 blocks of 128, which fills a quarter of the SMs.  At the
 // chain's 2^20 leaves (2^19 parents) the leaf takes 0.268 ms against a
 // 0.104 ms bound and the node 0.075 ms against 0.042 ms (H100 80GB HBM3,
-// 700 W, chip_smoke.py, bound at the SM issue rate).
+// 700 W, chip_smoke.py, bound at the SM issue rate).  The compress
+// interface carries every 32-bit half in an int64 (the JAX package's word
+// planes in the port's limb dtype): 392 bytes a message, so bytes bound it
+// where the leaf and node are bound by operations.
 
 #include <stdint.h>
 
@@ -177,8 +187,42 @@ extern "C" __global__ void node_kernel(const uint8_t* __restrict__ level,
     for (int k = 0; k < 8; ++k) o[k] = h[k];
 }
 
+// mh, ml: [16, n] hi and lo halves of the message words; t: [n] byte
+// counts; oh, ol: [8, n] hi and lo halves of the digest words.
+extern "C" __global__ void compress_kernel(const int64_t* __restrict__ mh,
+                                           const int64_t* __restrict__ ml,
+                                           const int64_t* __restrict__ t,
+                                           int64_t* __restrict__ oh,
+                                           int64_t* __restrict__ ol, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    uint64_t m[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+        const size_t at = (size_t)k * n + i;
+        m[k] = ((uint64_t)(uint32_t)mh[at] << 32) | (uint32_t)ml[at];
+    }
+    uint64_t h[8];
+    compress_final(m, (uint64_t)t[i], h);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const size_t at = (size_t)k * n + i;
+        oh[at] = (int64_t)(h[k] >> 32);
+        ol[at] = (int64_t)(h[k] & 0xFFFFFFFFull);
+    }
+}
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+extern "C" int compress_launch(const void* mh, const void* ml, const void* t, void* oh,
+                               void* ol, int n, void* stream) {
+    const int threads = 128;
+    compress_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)mh, (const int64_t*)ml, (const int64_t*)t, (int64_t*)oh,
+        (int64_t*)ol, n);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int leaf_launch(const void* canon, void* out, int n, void* stream) {
     const int threads = 128;

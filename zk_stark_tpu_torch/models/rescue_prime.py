@@ -1,16 +1,24 @@
 """Rescue-Prime hash, execution trace and AIR arithmetization.
 
-Counterpart of the host parts of the JAX package's
-``models/rescue_prime.py``: setup (alpha, MDS, round constants), the
-single-input hash and trace, and the transition and boundary constraints,
-all with Python ints on the host.  The batched device hash
-(``hash_batch_device``) belongs to a later slice of the port.
+Counterpart of the JAX package's ``models/rescue_prime.py``: setup (alpha,
+MDS, round constants), the single-input hash and trace, and the transition
+and boundary constraints, all with Python ints on the host; and bulk
+hashing of many inputs at once (Merkle-leaf batches, the JAX package's
+``__graft_entry__.entry()`` workload) on a device through
+``ops.rescue_ops.permutation_batch``.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import torch
+
 from ..field import Field
+from ..ops import limbs as L
+from ..ops import rescue_ops
 from ..poly import MPolynomial, Polynomial
+from ..stark import resolve_device
 from ..utils.bits import bit_count
 from ..utils.hashing import shake256
 from ..utils.matrix_f import inverse, rref, transpose
@@ -44,6 +52,7 @@ class RescuePrime:
         self.round_constants = self._get_round_constants(
             field, m, capacity, security_level, N
         )
+        self._device_cache: dict = {}
         self._air_cache: dict = {}
 
     # -- setup ---------------------------------------------------------------
@@ -129,6 +138,37 @@ class RescuePrime:
             state = self._round(state, r)
             out.append(list(state))
         return out
+
+    # -- batched hashing on a device -----------------------------------------
+
+    def _device_constants(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(MDS [m, m, 8], round constants [2Nm, 8]) in Montgomery form on
+        ``device``, cached per device."""
+        key = str(torch.device(device))
+        if key not in self._device_cache:
+            mds = L.ints_to_mont([v for row in self.MDS for v in row], device)
+            rc = L.ints_to_mont(self.round_constants, device)
+            self._device_cache[key] = (mds.reshape(self.m, self.m, L.NLIMB), rc)
+        return self._device_cache[key]
+
+    def hash_batch_device(self, inputs_mont: torch.Tensor) -> torch.Tensor:
+        """[B, 8] Montgomery inputs -> [B, 8] Montgomery digests, on the
+        inputs' device: each input in register 0, zeros in the other
+        m - capacity registers, the permutation, register 0."""
+        b = inputs_mont.shape[0]
+        zeros = torch.zeros((b, self.m - self.capacity, L.NLIMB), dtype=L.DTYPE,
+                            device=inputs_mont.device)
+        state = torch.cat([inputs_mont.unsqueeze(1), zeros], dim=1)
+        mds, rc = self._device_constants(inputs_mont.device)
+        out = rescue_ops.permutation_batch(state, mds, rc, self.N, self.alpha, self.alpha_inv)
+        return out[:, 0]
+
+    def hash_batch(self, inputs: Sequence[int], device="cuda") -> list[int]:
+        """Hash many inputs at once on ``device`` (the card unless the
+        caller asks for the CPU); equals ``[self.hash(x) for x in inputs]``."""
+        device = resolve_device(device)
+        digests = self.hash_batch_device(L.ints_to_mont(list(inputs), device))
+        return [int(v) for v in L.mont_to_ints(digests)]
 
     # -- AIR (ref: rescue_prime.rs:206-287) ----------------------------------
 

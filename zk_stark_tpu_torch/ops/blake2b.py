@@ -4,14 +4,19 @@ Counterpart of the JAX package's ``ops/blake2b_dev.py``.  Byte parity with
 ``hashlib`` is the contract: a leaf hashes the decimal string of a canonical
 field element, an inner node the 128-byte concatenation of its two
 children.  Both messages fit one compression block, so each digest is one
-final-block compression.  Digests are ``uint8[n, 64]`` tensors.
+final-block compression.  Digests are ``uint8[n, 64]`` tensors; the
+digest-word API (:func:`compress_words`, :func:`node_digests_packed`,
+:func:`leaf_digest_words`, :func:`node_digest_words`) carries them as the
+JAX package does, (hi, lo) 32-bit halves of the 8 little-endian words,
+here in ``int64`` planes [8, n].
 
-On CUDA tensors :func:`leaf_digests` and :func:`node_digests` launch the
-kernels of ``csrc/blake2b.cu`` (one thread per digest); on CPU tensors they
-run the plain versions below, which carry each 64-bit word as (hi, lo)
-32-bit halves in ``int64`` (PyTorch's ``int64`` right shift is arithmetic
-and its CPU backend has no ``uint64``/``uint32`` kernels, so a direct 64-bit
-port would rotate wrongly).
+On CUDA tensors :func:`leaf_digests`, :func:`node_digests` and
+:func:`compress_words` launch the kernels of ``csrc/blake2b.cu`` (one
+thread per digest); on CPU tensors they run the plain versions below,
+which carry each 64-bit word as (hi, lo) 32-bit halves in ``int64``
+(PyTorch's ``int64`` right shift is arithmetic and its CPU backend has no
+``uint64``/``uint32`` kernels, so a direct 64-bit port would rotate
+wrongly).
 """
 
 from __future__ import annotations
@@ -36,6 +41,12 @@ NODE_KERNEL = _build.Kernel(
     "node_launch",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     replaces="zk_stark_tpu/ops/blake2b_dev.py:383 (_node_split_kernel)",
+)
+COMPRESS_KERNEL = _build.Kernel(
+    "blake2b",
+    "compress_launch",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p],
+    replaces="zk_stark_tpu/ops/blake2b_dev.py:224 (_compress_pallas_kernel)",
 )
 
 # BLAKE2b IV (RFC 7693 section 2.6)
@@ -263,3 +274,55 @@ def node_digests(level: torch.Tensor) -> torch.Tensor:
         return node_kernel(level)
     _build.check_device(level, "node_digests")
     return node_digests_plain(level)
+
+
+def compress_kernel(mh: torch.Tensor, ml: torch.Tensor, t: torch.Tensor):
+    """Launch ``compress_kernel``; same contract as :func:`compress_plain`."""
+    n = t.shape[0]
+    _build.check_cuda_tensor(mh, "compress mh", L.DTYPE, (16, n))
+    _build.check_cuda_tensor(ml, "compress ml", L.DTYPE, (16, n))
+    _build.check_cuda_tensor(t, "compress t", L.DTYPE, (n,))
+    oh = torch.empty((8, n), dtype=L.DTYPE, device=t.device)
+    ol = torch.empty_like(oh)
+    if n:
+        COMPRESS_KERNEL(mh.data_ptr(), ml.data_ptr(), t.data_ptr(), oh.data_ptr(),
+                        ol.data_ptr(), n, _build.stream_ptr(t.device))
+    return oh, ol
+
+
+def compress_words(mh: torch.Tensor, ml: torch.Tensor, t: torch.Tensor):
+    """Final-block compressions: message words (hi, lo) [16, n] and byte
+    counts t [n], 0 <= t <= 128 -> digest words (hi, lo) [8, n]
+    (``blake2b_dev._compress_words``)."""
+    if t.is_cuda:
+        return compress_kernel(mh, ml, t)
+    _build.check_device(t, "compress_words")
+    return compress_plain(mh, ml, t)
+
+
+def node_digests_packed(d: torch.Tensor) -> torch.Tensor:
+    """Packed digest level [2, 8, 2m] (hi, lo words) -> parents [2, 8, m]:
+    parent i hashes children 2i || 2i+1, whose words are its message."""
+    m = d.shape[2] // 2
+    mh = torch.cat([d[0, :, 0::2], d[0, :, 1::2]]).contiguous()
+    ml = torch.cat([d[1, :, 0::2], d[1, :, 1::2]]).contiguous()
+    t = torch.full((m,), 128, dtype=L.DTYPE, device=d.device)
+    return torch.stack(compress_words(mh, ml, t))
+
+
+def leaf_digest_words(canon: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Canonical limbs [n, 8] -> leaf digest words (hi, lo) [8, n]."""
+    return _bytes_to_words(leaf_digests(canon))
+
+
+def node_digest_words(hhi: torch.Tensor, hlo: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Digest words (hi, lo) [8, 2m] -> parent words (hi, lo) [8, m]."""
+    d = node_digests_packed(torch.stack([hhi, hlo]))
+    return d[0], d[1]
+
+
+def words_to_digest_np(hhi, hlo) -> np.ndarray:
+    """Digest words (hi, lo) [8, n] -> uint8[n, 64] little-endian bytes."""
+    hhi = torch.as_tensor(hhi, dtype=L.DTYPE)
+    hlo = torch.as_tensor(hlo, dtype=L.DTYPE, device=hhi.device)
+    return _words_to_bytes(hhi, hlo).cpu().numpy()

@@ -251,6 +251,48 @@ def mont_pow(a: torch.Tensor, e: int) -> torch.Tensor:
     return acc
 
 
+#: exponents of at most this many bits go by square-and-multiply in
+#: :func:`mont_pow_windowed` (the JAX package's ``_POW_UNROLL_BITS``)
+POW_UNROLL_BITS = 8
+#: window width of :func:`mont_pow_windowed`: digits 0..15, a table of a^1..a^15
+POW_WINDOW = 4
+
+
+def window_digits(e: int) -> list[int]:
+    """Base-2^POW_WINDOW digits of e > 0, most significant (and nonzero) first."""
+    ndig = -(-e.bit_length() // POW_WINDOW)
+    mask = (1 << POW_WINDOW) - 1
+    return [(e >> (POW_WINDOW * (ndig - 1 - i))) & mask for i in range(ndig)]
+
+
+def mont_pow_windowed(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e in Montgomery domain by fixed-window exponentiation.
+
+    Counterpart of the JAX package's ``limbs.mont_pow_windowed``: digits of
+    ``POW_WINDOW`` bits, most significant first, each a run of
+    ``POW_WINDOW`` squarings and one product by a table entry (none for a
+    zero digit), as ``csrc/rescue.cu`` computes the inverse S-box.
+    For the Rescue inverse S-box's 128-bit exponent (65 set bits) that is
+    169 products against 191 for square-and-multiply.  Exponents of at most
+    ``POW_UNROLL_BITS`` bits go to :func:`mont_pow`.
+    """
+    if e.bit_length() <= POW_UNROLL_BITS:
+        return mont_pow(a, e)
+    # table[d] = a^d; a^0 is never selected (the first digit is nonzero and
+    # a zero digit costs no product)
+    table = [None, a]
+    for _ in range(2, 1 << POW_WINDOW):
+        table.append(mont_mul(table[-1], a))
+    digits = window_digits(e)
+    acc = table[digits[0]]
+    for d in digits[1:]:
+        for _ in range(POW_WINDOW):
+            acc = mont_sqr(acc)
+        if d:
+            acc = mont_mul(acc, table[d])
+    return acc
+
+
 def cumprod_mont_blocked(x: torch.Tensor, cols: int | None = None) -> torch.Tensor:
     """Inclusive cumulative Montgomery product along axis 0 of [n, 8].
 
