@@ -27,6 +27,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    for the median time), one verify, one verify against a wrong output
    that must be rejected; the proof is 3,430,752 bytes; then one more warm
    prove under torch.profiler;
+7b. the long transforms: ntt_mont and intt_mont at 2^21, 2^22, 2^24 (the
+   four-step) and 2^25 (the three-pass split), then one low-degree
+   extension (fast_coset_evaluate: 2^23 coefficients on a 2^25-point
+   coset), with the counts reset just before and read just after (exactly
+   the passes kernel_passes plans); each size bit for bit against
+   ntt_passes_plain with both roots, 2^25 also against the flat ntt_plain
+   and, as a batch of two columns, against each column alone; the round
+   trip returning the input; the extension at 4 coset points against
+   evaluate_many (no NTT); times, bounds, peak device memory;
+7c. the NTT stage-variant probe (tools/ntt_variant_probe.py) at 1024 x
+   1024: kernels a, b and c bit for bit against the plain stages and
+   ntt_kernel, each timed beside its bound, launches counted over the
+   probe's run;
 8. the hash-rate yardsticks: the chained Montgomery product (n = 2^18,
    k = 32, the JAX bench's calibration) and the bare BLAKE2b compression
    (2^18 messages: the bench's digest-twice message, and random words with
@@ -79,47 +92,25 @@ from zk_stark_tpu_torch.ops import fold as FO  # noqa: E402
 from zk_stark_tpu_torch.ops import limbs as L  # noqa: E402
 from zk_stark_tpu_torch.ops import montmul_chain as MC  # noqa: E402
 from zk_stark_tpu_torch.ops import ntt as N  # noqa: E402
+from zk_stark_tpu_torch.ops import ntt_variants as NV  # noqa: E402
+from zk_stark_tpu_torch.ops import poly_ops as PO  # noqa: E402
 from zk_stark_tpu_torch.ops import rescue_ops as R  # noqa: E402
-
-#: HBM bytes/s of one H100 SXM (published datasheet)
-HBM_BYTES_PER_S = 3.35e12
-#: thread-instructions an SM can issue per clock on sm_90: 4 schedulers,
-#: each one warp instruction (32 lanes) per clock.  No mix of integer
-#: instructions runs faster (integer multiply-adds go to the FMA pipe, the
-#: rest to the 64-lane ALU pipe), so SMs x this x the card's maximum SM clock
-#: is a ceiling of the integer rate and the bound derived from it a floor
-ISSUE_LANES_PER_SM = 128
-
-
-
-def mont_mul_ops() -> int:
-    """32-bit integer instructions one Montgomery product needs, counted
-    from csrc/field.cuh's CIOS with p's words (1, 0, 0, 0xCB800000).
-
-    A multiply-add gives one half of a wide product and folds the
-    accumulation and its carry in (PTX mad.lo.cc / madc.hi.cc); an add
-    with carry, a subtract with borrow or a select is one instruction.
-    Per word b[i] of the multiplier: the row a * b[i] is 4 low and 4 high
-    halves and the carries into t[4] and t[5] (10); the reduction is
-    m = -t[0] (1), one instruction for each word of p that is 0 or 1 (a
-    carry, an add), two for each other word (its two halves), and the carry
-    into t[4] (1).  Then the conditional subtraction of p: 4 subtracts with
-    borrow, 3 for the flag, 4 selects.  The same count for every kernel's
-    bound; the compiled code's count is a separate diagnostic
-    (:func:`sass_ops_per_product`).
-    """
-    words = [(L.P >> (32 * k)) & 0xFFFFFFFF for k in range(4)]
-    row = 2 * 4 + 2
-    reduction = 1 + sum(1 if w in (0, 1) else 2 for w in words) + 1
-    return 4 * (row + reduction) + 4 + 3 + 4
+from zk_stark_tpu_torch.tools import ntt_variant_probe  # noqa: E402
+from zk_stark_tpu_torch.tools.measure import (  # noqa: E402
+    ADD_SUB_OPS,
+    HBM_BYTES_PER_S,
+    MONT_MUL_OPS,
+    bound_ms,
+    card_line,
+    int32_ops_per_s,
+    ntt_bound,
+    time_ms,
+)
 
 
-#: 32-bit integer instructions per field operation on 4 words of 32 bits
-#: (product: 79, see mont_mul_ops; add/sub: 4 add-with-carry, 4 subtract,
-#: 4 selects and flags) and per BLAKE2b compression (96 G mixes of 6 64-bit
-#: adds, 4 xors and 4 rotates, 2 instructions each, plus finalisation)
-MONT_MUL_OPS = mont_mul_ops()
-ADD_SUB_OPS = 16
+#: 32-bit integer instructions per BLAKE2b compression (96 G mixes of 6
+#: 64-bit adds, 4 xors and 4 rotates, 2 instructions each, plus
+#: finalisation); products and additions: tools/measure.py
 COMPRESS_OPS = 96 * 28 + 16
 DECIMAL_OPS = 600  # 20 128-bit divisions by 10^9, 45 digits, packing
 
@@ -141,6 +132,12 @@ RESCUE_SIZES = (256, 1 << 14, 1 << 20)
 RESCUE_HASH_1 = 244180265933090377212304188905974087294  # tests/test_rescue.py
 #: SASS opcodes that are not the arithmetic of a product: memory, control,
 #: special-register reads
+#: the long-NTT phase's sizes: the JAX bench's sweep (bench.py
+#: bench_ntt_sweep, 2^21 and 2^22: four-step here), the four-step's largest,
+#: and one beyond it (the three-pass split)
+LONG_NTT_SIZES = (1 << 21, 1 << 22, 1 << 24, 1 << 25)
+#: the low-degree extension of a 2^23-row trace column at expansion 4
+LDE_COEFFS, LDE_POINTS = 1 << 23, 1 << 25
 NON_ARITH = {"LDG", "STG", "LD", "ST", "LDS", "STS", "LDL", "STL", "LDC", "ULDC",
              "BRA", "EXIT", "BAR", "NOP", "RET", "CALL", "BSSY", "BSYNC",
              "WARPSYNC", "JMP", "S2R", "S2UR", "CS2R"}
@@ -150,48 +147,6 @@ def require(cond, message: str) -> None:
     """A check of a phase; raises (unlike assert, it survives python -O)."""
     if not cond:
         raise RuntimeError(message)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def int32_ops_per_s() -> float:
-    """The card's peak rate of 32-bit integer instructions (its issue rate)."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        check=True, capture_output=True, text=True, timeout=60,
-    )
-    mhz = float(out.stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * ISSUE_LANES_PER_SM * mhz * 1e6
-
-
-def time_ms(fn, reps: int = 20, runs: int = 5) -> float:
-    """Median over ``runs`` of the mean time of ``reps`` calls (CUDA events)."""
-    fn()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        samples.append(start.elapsed_time(end) / reps)
-    return statistics.median(samples)
-
-
-def bound_ms(nbytes: int, ops: int, int_rate: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / int_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -205,22 +160,6 @@ def random_mont(n: int, gen: torch.Generator, dev) -> torch.Tensor:
     limbs = torch.randint(0, 1 << 16, (n, L.NLIMB), dtype=L.DTYPE, generator=gen)
     limbs[:, -1] %= L.P_LIMBS[-1]
     return limbs.to(dev)
-
-
-def ntt_bound(n: int, int_rate: float, four_step: bool) -> tuple[float, str]:
-    """Input and output once as int64 limbs plus the 16-byte stage twiddle
-    words; the butterflies, and with the four-step one product per element.
-    The four-step's [c, r] twiddle table is not counted: it is this design's
-    choice, and a kernel that formed root^(i2 * k1) from the small stage
-    tables would not read it."""
-    log2n = n.bit_length() - 1
-    if four_step:
-        r, c = N.four_step_split(n)
-        nbytes = 2 * n * 64 + (r // 2 + c // 2) * 16
-    else:
-        nbytes = 2 * n * 64 + n // 2 * 16
-    ops = log2n * n // 2 * (MONT_MUL_OPS + 2 * ADD_SUB_OPS) + (n * MONT_MUL_OPS if four_step else 0)
-    return bound_ms(nbytes, ops, int_rate)
 
 
 def fold_bound(n: int, int_rate: float) -> tuple[float, str]:
@@ -276,7 +215,7 @@ def compare_kernels(dev, int_rate: float) -> dict:
         k_ms = time_ms(lambda: N.ntt_kernel(x, root))
         p_ms = time_ms(lambda: N.ntt_plain(x, root), reps=2 if four_step else 3, runs=3)
         name, kernel = ("ntt_four_step", N.NTT_TW_KERNEL) if four_step else ("ntt", N.NTT_KERNEL)
-        record(name, kernel, f"n={n}", err, k_ms, p_ms, ntt_bound(n, int_rate, four_step))
+        record(name, kernel, f"n={n}", err, k_ms, p_ms, ntt_bound(n, int_rate))
 
     for n in (4096, 1 << 20):
         cw = random_mont(n, gen, dev)
@@ -358,7 +297,7 @@ def main_path(dev, kernels) -> tuple[dict, tuple]:
     sig = rpsss.sign(sk, doc)
     torch.cuda.synchronize()
     sign_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k.symbol: k.launches for k in kernels}
+    launches = {k.name: k.launches for k in kernels}
 
     t0 = time.perf_counter()
     ok = rpsss.verify(pk, doc, sig)
@@ -490,7 +429,7 @@ def chain_path(dev, kernels) -> dict:
     for k in kernels:
         k.launches = 0
     proof, warm_ms = prove()
-    launches = {k.symbol: k.launches for k in kernels}
+    launches = {k.name: k.launches for k in kernels}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # two more warm proves: host time on a shared machine spreads
     warm_runs = [warm_ms] + [prove()[1] for _ in range(2)]
@@ -523,6 +462,129 @@ def chain_path(dev, kernels) -> dict:
         lambda: stark.prove(trace, air, boundary, ProofStream(stark.field)))
     print(json.dumps({"chain_profile": result["profile"]}), flush=True)
     return result
+
+
+def long_ntt_phase(dev, int_rate: float) -> dict:
+    """Phase 7b: the transform entry points beyond 2^20 points and one
+    low-degree extension at 2^25; returns the three-pass row (1c) and the
+    four-step's times at the larger sizes."""
+    F = Field()
+    gen = torch.Generator().manual_seed(1237)
+    kernels = [N.NTT_KERNEL, N.NTT_TW_KERNEL, N.NTT_LONG_TW_KERNEL, N.NTT_LONG_KERNEL]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    xs = {n: random_mont(n, gen, dev) for n in LONG_NTT_SIZES}
+    roots = {n: F.primitive_nth_root(n).value for n in LONG_NTT_SIZES}
+    coeffs = random_mont(LDE_COEFFS, gen, dev)
+    offset = F.generator().value
+    lde_root = F.primitive_nth_root(LDE_POINTS).value
+
+    def extend():
+        return PO.fast_coset_evaluate(PO.DPoly(coeffs), offset, lde_root, LDE_POINTS)
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys = {n: N.ntt_mont(x, roots[n]) for n, x in xs.items()}
+    backs = {n: N.intt_mont(ys[n], roots[n]) for n in xs}
+    codeword = extend()
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    path_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k.name: k.launches for k in kernels}
+    planned = dict.fromkeys(launches, 0)
+    for n, count in [(n, 2) for n in xs] + [(LDE_POINTS, 1)]:
+        for p in N.kernel_passes(n, 1, 1):
+            planned[p.kernel.name] += count
+    require(launches == planned, f"long NTT launches {launches}, planned {planned}")
+    require(all(launches.values()), f"a kernel of the long-NTT path was not launched: {launches}")
+    # three launches a transform at 2^25, two of them ntt_tw_launch
+    require([p.kernel for p in N.kernel_passes(LONG_NTT_SIZES[-1], 1, 1)]
+            == [N.NTT_TW_KERNEL, N.NTT_LONG_TW_KERNEL, N.NTT_LONG_KERNEL],
+            f"the plan at {LONG_NTT_SIZES[-1]} is not the three-pass split")
+
+    by_size = {}
+    for n, x in xs.items():
+        root = roots[n]
+        inv = pow(root, -1, L.P)
+        plain, p_ms = timed_once(lambda: N.ntt_passes_plain(x, root))
+        err = check(f"ntt_mont n={n}", ys[n], plain)
+        del plain
+        err += check(f"ntt_kernel inverse root n={n}", N.ntt_kernel(x, inv),
+                     N.ntt_passes_plain(x, inv))
+        require(torch.equal(backs[n], x), f"intt_mont(ntt_mont(x)) is not x at n={n}")
+        flat_ms = None
+        if n == LONG_NTT_SIZES[-1]:
+            flat, flat_ms = timed_once(lambda: N.ntt_plain(x, root))
+            err += check(f"ntt_mont n={n} against the flat plain transform", ys[n], flat)
+            del flat
+            # the grid's third index (batch columns of passes 2 and 3): two
+            # columns at once equal each alone
+            pair = N.ntt_kernel(torch.stack([x, ys[n]], dim=1), root)
+            require(torch.equal(pair[:, 0], ys[n]) and torch.equal(pair[:, 1], N.ntt_kernel(ys[n], root)),
+                    f"ntt_kernel n={n}: a batch of two differs from the columns alone")
+            del pair
+        big = n >= 1 << 24
+        reps, runs = (5, 3) if big else (20, 5)
+        k_ms = time_ms(lambda: N.ntt_kernel(x, root), reps=reps, runs=runs)
+        # each pass alone, between two buffers of the transform's size
+        passes = N.kernel_passes(n, 1, root)
+        dst = torch.empty_like(x)
+        pass_ms = [time_ms(lambda: N._launch_pass(x, dst, p), reps=reps, runs=runs) for p in passes]
+        del dst
+        bound = ntt_bound(n, int_rate)
+        by_size[f"n={n}"] = dict(ms=k_ms, pass_ms=pass_ms, plain_ms=p_ms, flat_plain_ms=flat_ms,
+                                 bound_ms=bound[0], bound_by=bound[1], passes=len(passes),
+                                 max_abs_err=err)
+        print(f"long ntt n={n} ({len(passes)} passes): bit-exact (both roots; round trip"
+              f"{'; flat plain; batch of two' if flat_ms else ''}), kernel {k_ms:.4f} ms (passes "
+              f"{', '.join(f'{t:.4f}' for t in pass_ms)}), plain {p_ms:.1f} ms"
+              f"{f', flat plain {flat_ms:.1f} ms' if flat_ms else ''}, bound {bound[0]:.6f} ms "
+              f"({bound[1]})", flush=True)
+
+    # the extension at 4 coset points, against a direct evaluation (no NTT)
+    require(tuple(codeword.shape) == (LDE_POINTS, L.NLIMB), f"codeword shape {codeword.shape}")
+    idx = [0, 1, int(torch.randint(2, LDE_POINTS - 1, (1,), generator=gen)), LDE_POINTS - 1]
+    points = L.ints_to_mont([offset * pow(lde_root, i, L.P) % L.P for i in idx], dev)
+    require(torch.equal(codeword[idx], PO.evaluate_many(coeffs, points)),
+            "fast_coset_evaluate differs from evaluate_many at the sampled coset points")
+    lde_ms = timed_once(extend)[1]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"low-degree extension {LDE_COEFFS} -> {LDE_POINTS}: equals evaluate_many at coset "
+          f"indices {idx}; {lde_ms:.3f} ms warm; path {path_s:.2f} s (host clock); launches "
+          f"{launches}; peak device memory {path_peak_gb:.2f} GB in the path (inputs, outputs and "
+          f"round trips of every size held), {peak_gb:.2f} GB in the phase", flush=True)
+
+    head = by_size[f"n={LONG_NTT_SIZES[-1]}"]
+    row = dict(kernel=N.NTT_LONG_TW_KERNEL, source="zk_stark_tpu_torch/csrc/ntt.cu",
+               launches=launches["ntt_long_tw"] + launches["ntt_long"],
+               launches_by_kernel=launches, max_abs_err=head["max_abs_err"],
+               shape=f"n={LONG_NTT_SIZES[-1]}", ms=head["ms"], pass_ms=head["pass_ms"],
+               plain_ms=head["plain_ms"],
+               flat_plain_ms=head["flat_plain_ms"], bound_ms=head["bound_ms"],
+               bound_by=head["bound_by"], lde_ms=lde_ms, lde_indices=idx, path_s=path_s,
+               path_peak_gb=path_peak_gb, peak_gb=peak_gb, by_size={f"n={LONG_NTT_SIZES[-1]}": head})
+    four_step = {size: v for size, v in by_size.items() if v["passes"] == 2}
+    del xs, ys, backs, codeword
+    return {"ntt_long": row, "four_step_by_size": four_step}
+
+
+def probe_phase(dev) -> dict:
+    """Phase 7c: the NTT stage-variant probe; one row per variant."""
+    for k in NV.VARIANT_KERNELS.values():
+        k.launches = 0
+    result = ntt_variant_probe.run(device=dev)
+    torch.cuda.synchronize()
+    rows = {}
+    for which, r in result.items():
+        k = NV.VARIANT_KERNELS[which]
+        require(k.launches > 0, f"kernel {k.name} was not launched by the probe")
+        rows[f"ntt_variant_{which}"] = dict(kernel=k, source="zk_stark_tpu_torch/csrc/ntt_variants.cu",
+                            launches=k.launches,
+                            shape=f"n={ntt_variant_probe.N_POINTS},c={ntt_variant_probe.N_TRANSFORMS}",
+                            **r)
+    return rows
 
 
 def pow_products(e: int, windowed: bool = False) -> int:
@@ -749,9 +811,10 @@ def main() -> int:
 
     rpsss_kernels = [N.NTT_KERNEL, FO.FOLD_KERNEL, B.LEAF_KERNEL, B.NODE_KERNEL]
     chain_kernels = rpsss_kernels + [N.NTT_TW_KERNEL]
+    long_kernels = [N.NTT_LONG_TW_KERNEL, N.NTT_LONG_KERNEL, *NV.VARIANT_KERNELS.values()]
     hash_kernels = [MC.MONTMUL_CHAIN_KERNEL, B.COMPRESS_KERNEL, R.RESCUE_KERNEL]
     t0 = time.perf_counter()
-    logs = _build.build(sorted({k.library for k in chain_kernels + hash_kernels}))
+    logs = _build.build(sorted({k.library for k in chain_kernels + long_kernels + hash_kernels}))
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
         ptxas = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -766,6 +829,8 @@ def main() -> int:
     main["profile"] = profile_phase(*signer)
     chain_fixture_phase(dev)
     chain = chain_path(dev, chain_kernels)
+    long_ntt = long_ntt_phase(dev, int_rate)
+    variants = probe_phase(dev)
     mm = montmul_chain_phase(dev, int_rate)
     comp = compress_phase(dev, int_rate)
     rescue = rescue_phase(dev, int_rate, mm["ns_per_product"], mm["sass_ops_per_product"])
@@ -776,7 +841,10 @@ def main() -> int:
             entry["compress_ceiling_ms"] = count * comp["ns_per_compression"] * 1e-6
         rows[name]["compress_ceiling_ms"] = entry["compress_ceiling_ms"]
     for row in rows.values():
-        row["launches"] = chain["launches"][row["kernel"].symbol]
+        row["launches"] = chain["launches"][row["kernel"].name]
+    rows["ntt_four_step"]["by_size"].update(long_ntt["four_step_by_size"])
+    rows["ntt_long"] = long_ntt["ntt_long"]
+    rows.update(variants)
     rows.update(montmul_chain=mm, compress=comp, rescue=rescue)
 
     table = []
@@ -788,7 +856,7 @@ def main() -> int:
             "source": row["source"],
             "replaces": k.replaces,
             "launches": row["launches"],
-            "launches_rpsss_sign": main["launches"].get(k.symbol, 0),
+            "launches_rpsss_sign": main["launches"].get(k.name, 0),
             "max_abs_err": row["max_abs_err"],
             "bit_exact": row["max_abs_err"] == 0,
             "shape": row["shape"],

@@ -131,8 +131,10 @@ def test_overlong_last_codeword_rejected(monkeypatch):
 
 
 def test_cuda_fri_refuses_domains_beyond_the_kernel():
-    """On the card the NTT reaches 2^24 points through the four-step split,
-    so a 2^20 domain is taken and a 2^25 one refused up front."""
+    """On the card the NTT reaches 2^36 points through the three-pass
+    split, so 2^20 and 2^25 domains are taken and a 2^37 one refused up
+    front."""
     FRI(F, 1, F.primitive_nth_root(1 << 20).value, 1 << 20, 4, 2, device="cuda")
-    with pytest.raises(NotImplementedError, match="four-step"):
-        FRI(F, 1, F.primitive_nth_root(1 << 25).value, 1 << 25, 4, 2, device="cuda")
+    FRI(F, 1, F.primitive_nth_root(1 << 25).value, 1 << 25, 4, 2, device="cuda")
+    with pytest.raises(NotImplementedError, match="recursive split"):
+        FRI(F, 1, F.primitive_nth_root(1 << 37).value, 1 << 37, 4, 2, device="cuda")

@@ -26,6 +26,7 @@ from zk_stark_tpu_torch.ops import fold as FO
 from zk_stark_tpu_torch.ops import limbs as L
 from zk_stark_tpu_torch.ops import montmul_chain as MC
 from zk_stark_tpu_torch.ops import ntt as N
+from zk_stark_tpu_torch.ops import ntt_variants as V
 from zk_stark_tpu_torch.ops import rescue_ops as R
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "zk_stark_tpu_torch" / "csrc"
@@ -33,7 +34,7 @@ F = Field()
 
 _HARNESS = r"""
 #include <stdint.h>
-struct Dim { unsigned x, y; };
+struct Dim { unsigned x, y, z; };
 static Dim threadIdx, blockIdx, blockDim;
 #define __global__
 #define __device__
@@ -42,23 +43,39 @@ static Dim threadIdx, blockIdx, blockDim;
 #define __shared__
 static inline void __syncthreads() {}
 #include "ntt.cu"
-Fe4 sh[1 << 12];
+#include "ntt_variants.cu"
+Fe4 sh[1 << 13];
 #include "fold.cu"
 #include "blake2b.cu"
 #include "rescue.cu"
 uint32_t rescue_smem[1 << 14];
 #include "montmul_chain.cu"
 
-static void grid(unsigned blocks) { blockDim.x = 1; threadIdx.x = 0; blockIdx.y = 0; (void)blocks; }
+static void grid(unsigned blocks) {
+  blockDim.x = 1; threadIdx.x = 0; blockIdx.y = blockIdx.z = 0; (void)blocks;
+}
 extern "C" void host_ntt(const int64_t* x, int64_t* y, const uint32_t* tw, const uint32_t* ft,
-                         int log2n, int gx, int gy, long long ibx, long long iby, long long ie,
-                         long long obx, long long oby, long long oe) {
+                         int log2n, int gx, int gy, int gz, long long ibx, long long iby,
+                         long long ibz, long long ie, long long obx, long long oby,
+                         long long obz, long long oe) {
   grid(gx);
-  for (int by = 0; by < gy; ++by)
-    for (int bx = 0; bx < gx; ++bx) {
-      blockIdx.x = bx; blockIdx.y = by;
-      ntt_stages_kernel(x, y, tw, ft, log2n, Strides{ibx, iby, ie}, Strides{obx, oby, oe});
-    }
+  for (int bz = 0; bz < gz; ++bz)
+    for (int by = 0; by < gy; ++by)
+      for (int bx = 0; bx < gx; ++bx) {
+        blockIdx.x = bx; blockIdx.y = by; blockIdx.z = bz;
+        ntt_stages_kernel(x, y, tw, ft, log2n, Strides{ibx, iby, ibz, ie},
+                          Strides{obx, oby, obz, oe});
+      }
+}
+extern "C" void host_variant(char which, const int64_t* x, int64_t* y, const uint32_t* tw,
+                             int log2n, int c) {
+  grid(c);
+  for (int b = 0; b < c; ++b) {
+    blockIdx.x = b;
+    if (which == 'a') ntt_variant_a(x, y, tw, log2n, c);
+    if (which == 'b') ntt_variant_b(x, y, tw, log2n, c);
+    if (which == 'c') ntt_variant_c(x, y, tw, log2n, c);
+  }
 }
 extern "C" void host_fold(const int64_t* cw, const int64_t* ip, const int64_t* ao,
                           const int64_t* ti, int64_t* f, int64_t* c, int half) {
@@ -110,7 +127,8 @@ def lib(tmp_path_factory):
         check=True, capture_output=True, timeout=120,
     )
     lib = ctypes.CDLL(str(so))
-    lib.host_ntt.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 6
+    lib.host_ntt.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
+    lib.host_variant.argtypes = [ctypes.c_char] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.host_compress.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
     words = ctypes.POINTER(ctypes.c_uint32)
     lib.host_rescue.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
@@ -169,6 +187,36 @@ def test_ntt_fused_twiddle_source(lib, monkeypatch, n, max_kernel_n):
     assert torch.equal(y, N.ntt_plain(x, root))
     inv = pow(root, -1, P)
     assert torch.equal(_ntt_source(lib, x, inv)[0], N.ntt_plain(x, inv))
+
+
+@pytest.mark.parametrize("n, batch", [(1 << 8, 3), (1 << 9, 1)])
+def test_ntt_three_pass_source(lib, monkeypatch, n, batch):
+    """Above the four-step's reach the three passes (the second in the
+    fused-twiddle mode, batch columns on the grid's z index) equal the flat
+    plain transform, forward and inverse: with the single-block limit
+    lowered to 2^3, 2^8 = 8 x (8 x 4) and 2^9 = 8 x (8 x 8)."""
+    monkeypatch.setattr(N, "MAX_KERNEL_N", 1 << 3)
+    root = F.primitive_nth_root(n).value
+    x = _rand_mont(n + 2, batch * n).reshape(n, batch, L.NLIMB)
+    y, kernels = _ntt_source(lib, x, root)
+    assert kernels == [N.NTT_TW_KERNEL, N.NTT_LONG_TW_KERNEL, N.NTT_LONG_KERNEL]
+    assert torch.equal(y, N.ntt_plain(x, root))
+    inv = pow(root, -1, P)
+    assert torch.equal(_ntt_source(lib, x, inv)[0], N.ntt_plain(x, inv))
+
+
+@pytest.mark.parametrize("which", V.VARIANTS)
+@pytest.mark.parametrize("n", [8, 64, 1024])
+def test_ntt_variant_sources(lib, which, n):
+    """The probe's three stage kernels on 3 transforms of bit-reversed rows
+    equal the plain stages (and so each other)."""
+    c = 3
+    root = F.primitive_nth_root(n).value
+    x = _rand_mont(n + 3, n * c).reshape(n, c, L.NLIMB)
+    tw = V.stage_major_table(root, n, "cpu") if which == "b" else N._twiddles_u32(root, n, "cpu")
+    y = torch.empty_like(x)
+    lib.host_variant(which.encode(), *_ptrs(x, y, tw), n.bit_length() - 1, c)
+    assert torch.equal(y, V.stages_plain(x, root))
 
 
 def test_fold_kernel_source(lib):

@@ -69,6 +69,24 @@ def test_binary_ops(operands, name, port_fn, jax_fn, host_fn):
     assert _ints(got) == [host_fn(x, y) for x, y in zip(a, b)], name
 
 
+@pytest.mark.parametrize("block", [1, 5, 16, 48])
+def test_mont_mul_in_blocks(operands, monkeypatch, block):
+    """Products larger than MUL_BLOCK run in blocks along the leading
+    dimensions (a block smaller than one index of the first dimension
+    recurses into it, an uneven last block is kept); broadcast operands
+    give the unblocked product."""
+    a, b = operands
+    x = _port(a).reshape(4, 2, 8, L.NLIMB)
+    y = _port(b[:8])
+    want = [L.mont_mul(x, y), L.mont_mul(y.unsqueeze(1), x[0, 0])]
+    monkeypatch.setattr(L, "MUL_BLOCK", block)
+    assert torch.equal(L.mont_mul(x, y), want[0])
+    assert torch.equal(L.mont_mul(y.unsqueeze(1), x[0, 0]), want[1])
+    assert _ints(want[0].reshape(-1, L.NLIMB)) == [
+        u * v * pow(L.R_INT, -1, P) % P for u, v in zip(a, b[:8] * 8)
+    ]
+
+
 def test_unary_ops(operands):
     a, _ = operands
     x = _port(a)

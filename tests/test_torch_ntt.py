@@ -140,15 +140,20 @@ def test_kernel_twiddle_table_is_the_plain_power_table():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_large_transforms():
-    """A CPU tensor is refused; so is a transform beyond the four-step's
-    2^24 points (a meta tensor: no memory behind it)."""
+    """A CPU tensor is refused; so is a transform beyond the three-pass
+    split's 2^36 points, and a batch beyond the grid's y/z limit above a
+    single block (meta tensors: no memory behind them)."""
     x = L.ints_to_mont([1, 2, 3, 4], "cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         N.ntt_kernel(x, F.primitive_nth_root(4).value)
-    n = 2 * N.MAX_KERNEL_N ** 2
+    n = 2 * N.MAX_KERNEL_N ** 3
     big = torch.empty((n, L.NLIMB), dtype=L.DTYPE, device="meta")
-    with pytest.raises(NotImplementedError, match="four-step"):
+    with pytest.raises(NotImplementedError, match="recursive split"):
         N.ntt_kernel(big, F.primitive_nth_root(n).value)
+    for n in (2 * N.MAX_KERNEL_N, 2 * N.MAX_KERNEL_N ** 2):
+        wide = torch.empty((n, N.MAX_GRID_YZ + 1, L.NLIMB), dtype=L.DTYPE, device="meta")
+        with pytest.raises(ValueError, match="grid"):
+            N.ntt_kernel(wide, F.primitive_nth_root(n).value)
 
 
 @pytest.mark.parametrize("n", [1 << 13, 1 << 14])
@@ -181,8 +186,57 @@ def test_four_step_uneven_split_batched(monkeypatch):
     got = N.ntt_mont(x, root)
     assert torch.equal(got, N.ntt_plain(x, root))
     assert torch.equal(N.intt_mont(got, root), x)
-    with pytest.raises(NotImplementedError, match="recursive split"):
+    # beyond the square the recursive split takes over: 2^11 = 32 x (8 x 8)
+    assert [p.m for p in N.kernel_passes(1 << 11, 3, root)] == [32, 8, 8]
+    with pytest.raises(ValueError, match="four_step_split"):
         N.four_step_split(1 << 11)
+    with pytest.raises(NotImplementedError, match="recursive split"):
+        N.kernel_passes(1 << 16, 1, root)
+
+
+@pytest.mark.parametrize("n, batch", [(1 << 9, 3), (1 << 10, 1), (1 << 11, 2), (1 << 12, 1)])
+def test_three_pass_matches_jax(monkeypatch, n, batch):
+    """With the single-block limit lowered to 2^4, 2^9 to 2^12 points lie
+    beyond the four-step's 2^8 and take the three-pass plan (the
+    counterpart of the JAX package's _planes_long_ntt, whose own n >= 2^21
+    the CPU suite cannot afford): forward and inverse, batched, bit-identical
+    to the JAX package's ntt_mont / intt_mont, which the JAX tests pin
+    bit-exact to ntt_mont_pallas."""
+    monkeypatch.setattr(N, "MAX_KERNEL_N", 1 << 4)
+    root = F.primitive_nth_root(n).value
+    passes = N.kernel_passes(n, batch, root)
+    assert [p.kernel for p in passes] == [N.NTT_TW_KERNEL, N.NTT_LONG_TW_KERNEL, N.NTT_LONG_KERNEL]
+    assert passes[0].m == 16 and passes[1].m * passes[2].m == n // 16
+    vals = _rand(np.random.default_rng(n + batch), n * batch)
+    x = L.ints_to_mont(vals, "cpu").reshape(n, batch, L.NLIMB)
+    got = N.ntt_mont(x, root)
+    want = np.asarray(JN.ntt_mont(JL.ints_to_mont(vals).reshape(n, batch, L.NLIMB), root))
+    assert np.array_equal(got.numpy().astype(np.uint32), want)
+    back = N.intt_mont(got, root)
+    assert np.array_equal(back.numpy().astype(np.uint32), np.asarray(JN.intt_mont(want, root)))
+    assert torch.equal(back, x)
+
+
+def test_three_pass_in_blocks(monkeypatch):
+    """The plain passes and the table builds with their products in blocks
+    smaller than one pass (as at 2^25 points on the card) give the same
+    transform."""
+    monkeypatch.setattr(N, "MAX_KERNEL_N", 1 << 3)
+    monkeypatch.setattr(L, "MUL_BLOCK", 48)
+    n = 1 << 9
+    root = F.primitive_nth_root(n).value
+    x = L.ints_to_mont(_rand(np.random.default_rng(3), 2 * n), "cpu").reshape(n, 2, L.NLIMB)
+    want = N.ntt_plain(x, root)
+    N._four_step_twiddles_u32.cache_clear()
+    try:
+        assert torch.equal(N.ntt_mont(x, root), want)
+    finally:
+        N._four_step_twiddles_u32.cache_clear()
+    base = 12345678901234567890
+    assert _ints(N.pow_by_exponents(L.one_mont("cpu"), base, torch.arange(100), 7)) == [
+        pow(base, e, P) for e in range(100)
+    ]
+    assert torch.equal(N.intt_mont(N.ntt_mont(x, root), root), x)
 
 
 def test_four_step_twiddles_and_power_tables():
@@ -194,9 +248,11 @@ def test_four_step_twiddles_and_power_tables():
     assert [[int(v) for v in row] for row in L.mont_to_ints(table)] == [
         [pow(root, i2 * k1, P) for k1 in range(r)] for i2 in range(c)
     ]
-    words = N._four_step_twiddles_u32(root, r, c, "cpu").numpy().view(np.uint32)
+    words = N._four_step_twiddles_u32(root, r, c, "cpu")
     limbs = table.numpy()
-    assert np.array_equal(words, (limbs[..., 0::2] | (limbs[..., 1::2] << 16)).astype(np.uint32))
+    assert np.array_equal(words.numpy().view(np.uint32),
+                          (limbs[..., 0::2] | (limbs[..., 1::2] << 16)).astype(np.uint32))
+    assert torch.equal(N._limbs(words), table)
     exps = torch.tensor([0, 1, 5, 1000, 65535])
     got = N.pow_by_exponents(L.one_mont("cpu").expand(5, L.NLIMB), 7, exps, 16)
     assert _ints(got) == [pow(7, int(e), P) for e in exps]

@@ -101,8 +101,9 @@ def test_long_polynomials_match_jax():
 
 def test_long_polynomial_blocks(monkeypatch):
     """The log-depth form sums its products in blocks; blocks of 7 products
-    (an uneven last block) give the same values."""
-    monkeypatch.setattr(PO, "_EVAL_BLOCK", 7 * 2 * 3)
+    (an uneven last block, and the power table's products in blocks of
+    the same size) give the same values."""
+    monkeypatch.setattr(L, "MUL_BLOCK", 7 * 2 * 3)
     c_t = torch.stack([L.ints_to_mont(_rand(40 + b, 600), "cpu") for b in range(2)])
     p_t = L.ints_to_mont(_rand(50, 3), "cpu")
     assert torch.equal(PO.evaluate_polys_shared(c_t, p_t), PO._evaluate_horner(c_t, p_t))

@@ -7,22 +7,26 @@
 // [8, n, c] so that 128 transforms fill the vector lanes; with fuse_tw
 // (:266-268) it multiplies each transform by the four-step tile
 // root^(k1*i2) after the last stage.  The four-step glue around it
-// (_four_step_pallas :408, ntt_mont_pallas :449) is in ops/ntt.py.
+// (_four_step_pallas :408, ntt_mont_pallas :449) and the recursive split of
+// long columns (_planes_long_ntt :369) are in ops/ntt.py.
 //
 // Here one thread block owns one transform of n <= 2^12 points: it loads the
 // input bit-reversed into shared memory (16 bytes per element as 4 words of
 // 32 bits: 64 KB at n = 4096, above the 48 KB default, hence the attribute
 // set before the launch), runs all stages between __syncthreads(), and
-// writes back in natural order.  The grid is two batch dimensions; element
-// i of transform (bx, by) lives at element offset bx*sx + by*sy + i*se of
-// its tensor, for the input and the output separately.  So the four-step
-// split reads columns and writes transposed rows straight from and to
-// device memory, with no transpose pass between its two launches (an
-// element is 64 contiguous bytes, two full 32-byte sectors, whatever the
-// stride).  In the fused mode (ft != nullptr), element k of transform bx is
-// multiplied by ft[bx * n + k] before the store: the four-step twiddle costs
-// no pass of its own.
-//
+// writes back in natural order.  The grid is three batch dimensions;
+// element i of transform (bx, by, bz) lives at element offset
+// bx*sx + by*sy + bz*sz + i*se of its tensor, for the input and the output
+// separately.  So the four-step split (two launches) and the three-pass
+// split beyond 2^24 points (three launches) read columns and write
+// transposed rows straight from and to device memory, with no transpose
+// pass between launches (an element is 64 contiguous bytes, two full
+// 32-byte sectors, whatever the stride); the third grid index is the batch
+// column where a transform is addressed by two indices of its own.  In the
+// fused mode (ft != nullptr), element k of transform bx is multiplied by
+// ft[bx * n + k] before the store: the four-step twiddle costs no pass of
+// its own, nor does the inner twiddle of the three-pass split.
+
 // Bound: each stage does n/2 Montgomery products (~16 32x32->64 multiplies
 // plus carries each) and 2 modular add/sub on data that never leaves shared
 // memory; device memory sees the input and output once (64 B each per
@@ -37,42 +41,12 @@
 
 #include <stdint.h>
 
-#include "field.cuh"
+#include "ntt_stages.cuh"
 
-using zk::Fe;
-
-struct alignas(16) Fe4 {
-    uint32_t w[4];
-};
-
-// element offsets of transform (bx, by) and of element i within it
+// element offsets of transform (bx, by, bz) and of element i within it
 struct Strides {
-    long long bx, by, e;
+    long long bx, by, bz, e;
 };
-
-__device__ __forceinline__ Fe from4(const Fe4& v) {
-    Fe r;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) r.w[k] = v.w[k];
-    return r;
-}
-
-__device__ __forceinline__ Fe4 to4(const Fe& v) {
-    Fe4 r;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) r.w[k] = v.w[k];
-    return r;
-}
-
-__device__ __forceinline__ unsigned bit_reverse(unsigned i, int log2n) {
-#ifdef __CUDA_ARCH__
-    return __brev(i) >> (32 - log2n);
-#else
-    unsigned r = 0;
-    for (int b = 0; b < log2n; ++b) r |= ((i >> b) & 1u) << (log2n - 1 - b);
-    return r;
-#endif
-}
 
 // x, y: int64 limbs (Montgomery) laid out by the strides; tw: [n/2, 4]
 // uint32 words of root^k (Montgomery), k < n/2, stage s using
@@ -83,30 +57,15 @@ extern "C" __global__ void ntt_stages_kernel(
     int log2n, Strides in, Strides out) {
     extern __shared__ Fe4 sh[];
     const int n = 1 << log2n;
-    const long long bx = blockIdx.x, by = blockIdx.y;
-    const int64_t* xb = x + 8 * (bx * in.bx + by * in.by);
-    int64_t* yb = y + 8 * (bx * out.bx + by * out.by);
-    const Fe4* tw4 = reinterpret_cast<const Fe4*>(tw);
+    const long long bx = blockIdx.x, by = blockIdx.y, bz = blockIdx.z;
+    const int64_t* xb = x + 8 * (bx * in.bx + by * in.by + bz * in.bz);
+    int64_t* yb = y + 8 * (bx * out.bx + by * out.by + bz * out.bz);
 
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
         sh[bit_reverse((unsigned)i, log2n)] = to4(zk::load_fe(xb + 8 * (i * in.e)));
     }
     __syncthreads();
-
-    for (int s = 0; s < log2n; ++s) {
-        const int h = 1 << s;
-        const int tstep = log2n - 1 - s;  // twiddle index = j << tstep
-        for (int b = threadIdx.x; b < n / 2; b += blockDim.x) {
-            const int j = b & (h - 1);
-            const int i0 = ((b >> s) << (s + 1)) + j;
-            const int i1 = i0 + h;
-            const Fe e = from4(sh[i0]);
-            const Fe t = zk::mont_mul(from4(sh[i1]), from4(tw4[j << tstep]));
-            sh[i0] = to4(zk::add_mod(e, t));
-            sh[i1] = to4(zk::sub_mod(e, t));
-        }
-        __syncthreads();
-    }
+    stages_shared(sh, reinterpret_cast<const Fe4*>(tw), log2n, 0);
 
     const Fe4* ft4 = ft ? reinterpret_cast<const Fe4*>(ft) + bx * n : nullptr;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -120,7 +79,7 @@ extern "C" __global__ void ntt_stages_kernel(
 #include <cuda_runtime.h>
 
 static int launch(const void* x, void* y, const void* tw, const void* ft,
-                  int log2n, int gx, int gy, Strides in, Strides out,
+                  int log2n, int gx, int gy, int gz, Strides in, Strides out,
                   void* stream) {
     const int n = 1 << log2n;
     const int smem = n * (int)sizeof(Fe4);
@@ -128,29 +87,33 @@ static int launch(const void* x, void* y, const void* tw, const void* ft,
         ntt_stages_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     const int threads = n / 2 < 256 ? n / 2 : 256;
-    ntt_stages_kernel<<<dim3(gx, gy), threads, smem, (cudaStream_t)stream>>>(
+    ntt_stages_kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
         (const int64_t*)x, (int64_t*)y, (const uint32_t*)tw,
         (const uint32_t*)ft, log2n, in, out);
     return (int)cudaGetLastError();
 }
 
-// Plain mode: gx * gy transforms; returns cudaGetLastError().
+// Plain mode: gx * gy * gz transforms; returns cudaGetLastError().
 extern "C" int ntt_launch(const void* x, void* y, const void* tw, int log2n,
-                          int gx, int gy, long long in_bx, long long in_by,
-                          long long in_e, long long out_bx, long long out_by,
-                          long long out_e, void* stream) {
-    return launch(x, y, tw, nullptr, log2n, gx, gy, Strides{in_bx, in_by, in_e},
-                  Strides{out_bx, out_by, out_e}, stream);
+                          int gx, int gy, int gz, long long in_bx, long long in_by,
+                          long long in_bz, long long in_e, long long out_bx,
+                          long long out_by, long long out_bz, long long out_e,
+                          void* stream) {
+    return launch(x, y, tw, nullptr, log2n, gx, gy, gz,
+                  Strides{in_bx, in_by, in_bz, in_e},
+                  Strides{out_bx, out_by, out_bz, out_e}, stream);
 }
 
-// Fused-twiddle mode (the four-step's first pass): as ntt_launch, then
-// element k of transform bx times ft[bx, k].
+// Fused-twiddle mode (the first pass of a four-step split, and the second
+// of the three-pass split): as ntt_launch, then element k of transform
+// (bx, by, bz) times ft[bx, k].
 extern "C" int ntt_tw_launch(const void* x, void* y, const void* tw,
-                             const void* ft, int log2n, int gx, int gy,
-                             long long in_bx, long long in_by, long long in_e,
-                             long long out_bx, long long out_by, long long out_e,
-                             void* stream) {
-    return launch(x, y, tw, ft, log2n, gx, gy, Strides{in_bx, in_by, in_e},
-                  Strides{out_bx, out_by, out_e}, stream);
+                             const void* ft, int log2n, int gx, int gy, int gz,
+                             long long in_bx, long long in_by, long long in_bz,
+                             long long in_e, long long out_bx, long long out_by,
+                             long long out_bz, long long out_e, void* stream) {
+    return launch(x, y, tw, ft, log2n, gx, gy, gz,
+                  Strides{in_bx, in_by, in_bz, in_e},
+                  Strides{out_bx, out_by, out_bz, out_e}, stream);
 }
 #endif

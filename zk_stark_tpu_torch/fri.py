@@ -43,10 +43,10 @@ class FRI:
         self.expansion_factor = expansion_factor
         self.num_colinearity_tests = num_colinearity_tests
         self.device = torch.device(device)
-        if self.device.type == "cuda" and domain_length > MAX_KERNEL_N ** 2:
+        if self.device.type == "cuda" and domain_length > MAX_KERNEL_N ** 3:
             raise NotImplementedError(
-                f"FRI domain {domain_length} > {MAX_KERNEL_N ** 2} on the card needs "
-                "the NTT's recursive split beyond the four-step (ROADMAP queue B)"
+                f"FRI domain {domain_length} > {MAX_KERNEL_N ** 3} on the card is beyond "
+                "one level of the NTT's recursive split"
             )
 
     def num_rounds(self) -> int:

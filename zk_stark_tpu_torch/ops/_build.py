@@ -114,9 +114,13 @@ class Kernel:
     else, so a run can show that it went through the kernel.
     """
 
-    def __init__(self, library: str, symbol: str, argtypes: Sequence, replaces: str):
+    def __init__(self, library: str, symbol: str, argtypes: Sequence, replaces: str,
+                 name: str | None = None):
         self.library = library
         self.symbol = symbol
+        #: the key of its count in a report (the symbol, unless two counters
+        #: share one entry point)
+        self.name = name or symbol
         self.argtypes = list(argtypes)
         #: the TPU kernel this one stands in for (file:line in the JAX package)
         self.replaces = replaces

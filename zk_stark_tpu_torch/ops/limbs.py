@@ -19,6 +19,7 @@ This is tensor code, not a kernel: it runs as is on the CPU and on the card.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -198,13 +199,36 @@ def _redc_columns(t: torch.Tensor) -> torch.Tensor:
     return _select_reduced(t[..., NLIMB : 2 * NLIMB], t[..., 2 * NLIMB])
 
 
+#: most elements one step of :func:`mont_mul` multiplies: a step keeps a
+#: [..., 64] int64 temporary (512 B an element, 2 GiB at 2^22), so larger
+#: products run in blocks along their leading dimensions
+MUL_BLOCK = 1 << 22
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a*b*R^-1 mod p; inputs and output in [0, p).
 
-    Broadcasts over leading dimensions.  The result is the canonical
-    residue, so it equals the JAX package's bit for bit.
+    Broadcasts over leading dimensions, in blocks of at most
+    :data:`MUL_BLOCK` elements.  The result is the canonical residue, so it
+    equals the JAX package's bit for bit.
     """
     a, b = torch.broadcast_tensors(a, b)
+    lead = a.shape[:-1]
+    if math.prod(lead) <= MUL_BLOCK:
+        return _mont_mul_block(a, b)
+    out = torch.empty(a.shape, dtype=DTYPE, device=a.device)
+    step = MUL_BLOCK // math.prod(lead[1:])
+    if step == 0:  # one index of the first dimension is itself too large
+        for i in range(lead[0]):
+            out[i] = mont_mul(a[i], b[i])
+        return out
+    for lo in range(0, lead[0], step):
+        out[lo : lo + step] = _mont_mul_block(a[lo : lo + step], b[lo : lo + step])
+    return out
+
+
+def _mont_mul_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`mont_mul` of two tensors of one shape, in one step."""
     lead = a.shape[:-1]
     prod = (a.unsqueeze(-1) * b.unsqueeze(-2)).reshape(lead + (NLIMB * NLIMB,))
     t = torch.zeros(lead + (2 * NLIMB + 1,), dtype=DTYPE, device=a.device)

@@ -1,10 +1,10 @@
 """Radix-2 NTT / iNTT over GF(p) limb tensors.
 
-Counterpart of the JAX package's ``ops/ntt.py`` and of the Pallas four-step
-glue (``ops/ntt_pallas.py`` ``_four_step_pallas``, ``ntt_mont_pallas``):
-same transform, same pad-to-power-of-two and ``len < 2`` pass-through
-semantics.  The transform runs along axis 0 of ``[n, *batch, 8]``
-Montgomery tensors.
+Counterpart of the JAX package's ``ops/ntt.py`` and of the Pallas glue
+(``ops/ntt_pallas.py`` ``_four_step_pallas``, ``ntt_mont_pallas``,
+``_planes_long_ntt``): same transform, same pad-to-power-of-two and
+``len < 2`` pass-through semantics.  The transform runs along axis 0 of
+``[n, *batch, 8]`` Montgomery tensors.
 
 Up to :data:`MAX_KERNEL_N` points a transform is one block of the
 hand-written kernel of ``csrc/ntt.cu`` (all stages in shared memory; the
@@ -13,8 +13,10 @@ counterpart of the TPU's ``_ntt_stages_kernel``).  Above that, up to
 twice: the c columns of length r with root w^c, each multiplied by
 w^(k1 * i2) in the kernel's fused-twiddle mode before its store, then the
 r rows of length c with root w^r, written so that the output index
-k = k1 + r * k2 is in natural order.  Larger transforms raise (the
-recursive split is not ported).
+k = k1 + r * k2 is in natural order.  Up to ``MAX_KERNEL_N ** 3`` (2^36)
+the rows are themselves too long for one block and split once more,
+c = a * b, as the JAX package's ``_planes_long_ntt`` splits them: three
+launches in all (:func:`kernel_passes`).  Larger transforms raise.
 
 On a CUDA tensor :func:`ntt_mont` launches the kernel; on a CPU tensor it
 runs the same passes (:func:`kernel_passes`: grids, strides and tables),
@@ -36,22 +38,33 @@ from . import _build
 from . import limbs as L
 
 #: largest transform one thread block holds in shared memory (64 KB); a
-#: four-step transform is at most its square
+#: four-step transform is at most its square, a three-pass one its cube
 MAX_KERNEL_N = 1 << 12
+#: most blocks along the grid's y and z dimensions
+MAX_GRID_YZ = 65535
 
-_STRIDES = [ctypes.c_longlong] * 6
+_ARGS = [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]
 NTT_KERNEL = _build.Kernel(
     "ntt",
     "ntt_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + _STRIDES + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + _ARGS,
     replaces="zk_stark_tpu/ops/ntt_pallas.py:180 (_ntt_stages_kernel)",
 )
 #: the same kernel in its fused-twiddle mode (the four-step's first pass)
 NTT_TW_KERNEL = _build.Kernel(
     "ntt",
     "ntt_tw_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + _STRIDES + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + _ARGS,
     replaces="zk_stark_tpu/ops/ntt_pallas.py:180 (_ntt_stages_kernel, fuse_tw :266)",
+)
+#: the second and third passes of the three-pass split (the same two entry
+#: points, counted apart): the row transforms of _planes_long_ntt
+_LONG = "zk_stark_tpu/ops/ntt_pallas.py:369 (_planes_long_ntt)"
+NTT_LONG_TW_KERNEL = _build.Kernel(
+    "ntt", "ntt_tw_launch", [ctypes.c_void_p] * 4 + _ARGS, replaces=_LONG, name="ntt_long_tw"
+)
+NTT_LONG_KERNEL = _build.Kernel(
+    "ntt", "ntt_launch", [ctypes.c_void_p] * 3 + _ARGS, replaces=_LONG, name="ntt_long"
 )
 
 
@@ -94,6 +107,12 @@ def _words(limbs: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).contiguous()
 
 
+def _limbs(words: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_words`: [..., 4] words -> [..., 8] limbs."""
+    w = words.to(L.DTYPE) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).flatten(-2)
+
+
 @functools.lru_cache(maxsize=None)
 def _twiddles_u32(root_int: int, n: int, device: str) -> torch.Tensor:
     """The kernel's stage twiddles: root^k for k < n/2 as [n/2, 4] 32-bit
@@ -101,20 +120,20 @@ def _twiddles_u32(root_int: int, n: int, device: str) -> torch.Tensor:
     return _words(powers_mont(root_int, max(1, n // 2), device))
 
 
-@functools.lru_cache(maxsize=None)
 def _four_step_twiddles(root_int: int, r: int, c: int, device: str) -> torch.Tensor:
     """[c, r, 8] Montgomery root^(i2 * k1) (row i2 < c, column k1 < r)."""
     i2 = torch.arange(c, dtype=L.DTYPE, device=device).unsqueeze(1)
     k1 = torch.arange(r, dtype=L.DTYPE, device=device).unsqueeze(0)
     n = r * c
-    ones = L.one_mont(device).expand(c, r, L.NLIMB)
-    return pow_by_exponents(ones, root_int, (i2 * k1) % n, (n - 1).bit_length())
+    return pow_by_exponents(L.one_mont(device), root_int, (i2 * k1) % n, (n - 1).bit_length())
 
 
 @functools.lru_cache(maxsize=None)
 def _four_step_twiddles_u32(root_int: int, r: int, c: int, device: str) -> torch.Tensor:
     """The fused mode's table: [c, r, 4] words, row i2 multiplying the
-    first pass's transform of column i2."""
+    transform at grid index x = i2 of a fused pass.  Only this form is kept (a quarter
+    of the int64 limbs': 512 MiB at 2^25 points); the plain passes unpack
+    it (:func:`_limbs`)."""
     return _words(_four_step_twiddles(root_int, r, c, device))
 
 
@@ -125,12 +144,9 @@ def _brev(n: int, device: str) -> torch.Tensor:
 
 def four_step_split(n: int) -> tuple[int, int]:
     """(r, c) with n = r * c, r = 2^ceil(log2(n)/2), both at most
-    MAX_KERNEL_N; raises above MAX_KERNEL_N ** 2."""
+    MAX_KERNEL_N; n at most MAX_KERNEL_N ** 2."""
     if n > MAX_KERNEL_N * MAX_KERNEL_N:
-        raise NotImplementedError(
-            f"NTT of {n} > {MAX_KERNEL_N * MAX_KERNEL_N} points needs the recursive "
-            "split beyond the four-step (ROADMAP queue B: _planes_long_ntt), not ported"
-        )
+        raise ValueError(f"four_step_split: {n} > {MAX_KERNEL_N * MAX_KERNEL_N} points")
     log2n = n.bit_length() - 1
     r = 1 << ((log2n + 1) // 2)
     return r, n // r
@@ -141,16 +157,16 @@ def four_step_split(n: int) -> tuple[int, int]:
 # -----------------------------------------------------------------------------
 
 
-def ntt_plain(x: torch.Tensor, root_int: int) -> torch.Tensor:
+def _stages_plain(x: torch.Tensor, root_int: int) -> torch.Tensor:
     """All log2 n DIT butterfly stages as tensor code (the manner of the
-    JAX package's ``ntt_body_unrolled``): x [n, *batch, 8], n a power of
-    two >= 2, Montgomery values."""
+    JAX package's ``ntt_body_unrolled``): x [n, *batch, 8] with its rows in
+    bit-reversed order, n a power of two >= 2, Montgomery values; the
+    result is in natural order."""
     n = x.shape[0]
     log2n = n.bit_length() - 1
     batch_shape = tuple(x.shape[1:-1])
     nb = len(batch_shape)
     powtable = powers_mont(root_int, n // 2, x.device)
-    x = x.index_select(0, _brev(n, str(x.device)))
     for s in range(log2n):
         h = 1 << s
         w = powtable[:: n >> (s + 1)]  # [h, 8]: root^(j * n / 2h)
@@ -162,38 +178,74 @@ def ntt_plain(x: torch.Tensor, root_int: int) -> torch.Tensor:
     return x
 
 
+def ntt_plain(x: torch.Tensor, root_int: int) -> torch.Tensor:
+    """The transform of x [n, *batch, 8] in natural order: the bit-reversal
+    gather, then :func:`_stages_plain`."""
+    n = x.shape[0]
+    return _stages_plain(x.index_select(0, _brev(n, str(x.device))), root_int)
+
+
 class Pass(NamedTuple):
-    """One batched launch of the kernel: ``grid`` (x, y) transforms of
-    ``m`` points with root ``root``; element i of transform (bx, by) at
-    bx * s[0] + by * s[1] + i * s[2] (strides ``ins`` of the input, ``outs``
-    of the output, in elements of 8 limbs).  ``four_step`` is (root, r, c)
-    of the fused-twiddle table in the first pass of a four-step, else None."""
+    """One batched launch of the kernel: ``grid`` (x, y, z) transforms of
+    ``m`` points with root ``root``; element i of transform (bx, by, bz) at
+    bx * s[0] + by * s[1] + bz * s[2] + i * s[3] (strides ``ins`` of the
+    input, ``outs`` of the output, in elements of 8 limbs).  ``four_step``
+    is (root, m, gx) of the fused-twiddle table (row bx multiplies transform
+    bx), else None."""
 
     kernel: _build.Kernel
     root: int
     four_step: tuple | None
     m: int
-    grid: tuple[int, int]
-    ins: tuple[int, int, int]
-    outs: tuple[int, int, int]
+    grid: tuple[int, int, int]
+    ins: tuple[int, int, int, int]
+    outs: tuple[int, int, int, int]
 
 
 def kernel_passes(n: int, batch: int, root_int: int) -> list[Pass]:
     """The passes of ``batch`` transforms of n points laid out as [n, batch]:
-    one up to MAX_KERNEL_N points, the four-step's two above."""
+    one up to MAX_KERNEL_N points, the four-step's two up to its square,
+    three up to its cube; raises beyond."""
+    B = batch
     if n <= MAX_KERNEL_N:
-        # transform b: element i at i * batch + b
-        return [Pass(NTT_KERNEL, root_int, None, n, (batch, 1), (1, 0, batch), (1, 0, batch))]
-    r, c = four_step_split(n)
+        # transform b: element i at i * B + b
+        return [Pass(NTT_KERNEL, root_int, None, n, (B, 1, 1), (1, 0, 0, B), (1, 0, 0, B))]
+    if n <= MAX_KERNEL_N ** 2:
+        r, c = four_step_split(n)
+        return [
+            # column (i2, b): element i1 at (i1 * c + i2) * B + b; k1 is
+            # stored where i1 was, times root^(i2 * k1)
+            Pass(NTT_TW_KERNEL, pow(root_int, c, L.P), (root_int, r, c), r,
+                 (c, B, 1), (B, 1, 0, c * B), (B, 1, 0, c * B)),
+            # row (k1, b): element i2 at (k1 * c + i2) * B + b; k2 goes to
+            # output index k1 + r * k2
+            Pass(NTT_KERNEL, pow(root_int, r, L.P), None, c,
+                 (r, B, 1), (c * B, 1, 0, B), (B, 1, 0, r * B)),
+        ]
+    if n > MAX_KERNEL_N ** 3:
+        raise NotImplementedError(
+            f"NTT of {n} > {MAX_KERNEL_N ** 3} points (MAX_KERNEL_N ** 3): beyond one "
+            "level of the recursive split"
+        )
+    # n = r * c with r = MAX_KERNEL_N; the row transforms of length c (root
+    # wr = root^r) split once more as c = a * b, i2 = j1 * b + j2 and
+    # k2 = m1 + a * m2 (the JAX package's _planes_long_ntt)
+    r = MAX_KERNEL_N
+    c = n // r
+    a, b = four_step_split(c)
+    wr = pow(root_int, r, L.P)
     return [
-        # column (i2, b): element i1 at (i1 * c + i2) * batch + b; k1 is
-        # stored where i1 was, times root^(i2 * k1)
+        # the four-step's first pass, as above
         Pass(NTT_TW_KERNEL, pow(root_int, c, L.P), (root_int, r, c), r,
-             (c, batch), (batch, 1, c * batch), (batch, 1, c * batch)),
-        # row (k1, b): element i2 at (k1 * c + i2) * batch + b; k2 goes to
-        # output index k1 + r * k2
-        Pass(NTT_KERNEL, pow(root_int, r, L.P), None, c,
-             (r, batch), (c * batch, 1, batch), (batch, 1, r * batch)),
+             (c, B, 1), (B, 1, 0, c * B), (B, 1, 0, c * B)),
+        # transform (j2, k1, b): element j1 at (k1 * c + j1 * b + j2) * B + b;
+        # m1 is stored where j1 was, times wr^(j2 * m1)
+        Pass(NTT_LONG_TW_KERNEL, pow(wr, b, L.P), (wr, a, b), a,
+             (b, r, B), (B, c * B, 1, b * B), (B, c * B, 1, b * B)),
+        # transform (m1, k1, b): element j2 at (k1 * c + m1 * b + j2) * B + b;
+        # m2 goes to output index k1 + r * (m1 + a * m2)
+        Pass(NTT_LONG_KERNEL, pow(wr, a, L.P), None, b,
+             (a, r, B), (b * B, c * B, 1, B), (r * B, B, 1, r * a * B)),
     ]
 
 
@@ -219,29 +271,26 @@ def _plain_pass(src: torch.Tensor, dst: torch.Tensor, p: Pass) -> None:
     shape = (p.m,) + tuple(p.grid) + (L.NLIMB,)
 
     def view(t, s):
-        return t.as_strided(shape, (L.NLIMB * s[2], L.NLIMB * s[0], L.NLIMB * s[1], 1))
+        return t.as_strided(shape, tuple(L.NLIMB * v for v in (s[3], s[0], s[1], s[2])) + (1,))
 
-    y = ntt_plain(view(src, p.ins), p.root)  # [m, gx, gy, 8]
+    y = ntt_plain(view(src, p.ins), p.root)  # [m, gx, gy, gz, 8]
     if p.four_step is not None:
-        ft = _four_step_twiddles(*p.four_step, str(src.device))  # [gx, m, 8]
-        y = L.mont_mul(y, ft.transpose(0, 1).unsqueeze(2))
+        ft = _limbs(_four_step_twiddles_u32(*p.four_step, str(src.device)))  # [gx, m, 8]
+        y = L.mont_mul(y, ft.transpose(0, 1)[:, :, None, None])
     view(dst, p.outs).copy_(y)
 
 
 def _batch(x: torch.Tensor, name: str) -> int:
-    """The number of transforms in x [n, *batch, 8]; raises on a bad shape
-    or beyond the four-step's reach."""
+    """The number of transforms in x [n, *batch, 8]; raises on a bad shape."""
     n = x.shape[0]
     if x.shape[-1] != L.NLIMB or n < 2 or n & (n - 1):
         raise ValueError(f"{name}: bad shape {tuple(x.shape)}")
-    if n > MAX_KERNEL_N:
-        four_step_split(n)
     return x.numel() // (n * L.NLIMB)
 
 
-def _run_passes(x: torch.Tensor, batch: int, root_int: int, run_pass) -> torch.Tensor:
+def _run_passes(x: torch.Tensor, passes: list[Pass], run_pass) -> torch.Tensor:
     src = x
-    for p in kernel_passes(x.shape[0], batch, root_int):
+    for p in passes:
         dst = torch.empty_like(src)
         run_pass(src, dst, p)
         src = dst
@@ -250,25 +299,29 @@ def _run_passes(x: torch.Tensor, batch: int, root_int: int, run_pass) -> torch.T
 
 def ntt_kernel(x: torch.Tensor, root_int: int) -> torch.Tensor:
     """Launch ``csrc/ntt.cu`` on a CUDA tensor [n, *batch, 8] (n a power of
-    two, 2 <= n <= MAX_KERNEL_N ** 2); returns a new tensor of the same
-    shape.  One launch up to MAX_KERNEL_N points, two (the four-step) above."""
+    two, 2 <= n <= MAX_KERNEL_N ** 3); returns a new tensor of the same
+    shape.  One launch up to MAX_KERNEL_N points, two (the four-step) up to
+    its square, three above."""
     batch = _batch(x, "ntt_kernel")
-    if x.shape[0] > MAX_KERNEL_N and batch > 65535:
-        raise ValueError(f"ntt_kernel: four-step batch {batch} exceeds the grid's y limit")
+    passes = kernel_passes(x.shape[0], batch, root_int)
+    if any(max(p.grid[1:]) > MAX_GRID_YZ for p in passes):
+        raise ValueError(f"ntt_kernel: batch {batch} of {x.shape[0]}-point transforms "
+                         f"exceeds the grid's y/z limit {MAX_GRID_YZ}")
     x = x.contiguous()
     _build.check_cuda_tensor(x, "ntt_kernel x", L.DTYPE)
     if batch == 0:
         return torch.empty_like(x)
-    return _run_passes(x, batch, root_int, _launch_pass)
+    return _run_passes(x, passes, _launch_pass)
 
 
 def ntt_passes_plain(x: torch.Tensor, root_int: int) -> torch.Tensor:
     """The plain version of :func:`ntt_kernel`: the same passes, strides and
     tables, each pass in tensor code (:func:`_plain_pass`); any device."""
     batch = _batch(x, "ntt_passes_plain")
+    passes = kernel_passes(x.shape[0], batch, root_int)
     if batch == 0:
         return torch.empty_like(x)
-    return _run_passes(x.contiguous(), batch, root_int, _plain_pass)
+    return _run_passes(x.contiguous(), passes, _plain_pass)
 
 
 def _transform(x: torch.Tensor, root_int: int) -> torch.Tensor:

@@ -319,10 +319,6 @@ def _power_table(points: torch.Tensor, n: int) -> torch.Tensor:
 #: JAX package's ``_PARALLEL_EVAL_MIN``
 PARALLEL_EVAL_MIN = 513
 
-#: most [coefficient, point] products of one block of the log-depth form:
-#: 2^22 elements keep the Montgomery product's [..., 64] temporary at 2 GB
-_EVAL_BLOCK = 1 << 22
-
 
 def _evaluate_horner(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """coeffs [nb, n, 8] at points [k, 8] -> [nb, k, 8]: n dependent steps,
@@ -337,15 +333,14 @@ def _evaluate_horner(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor
 def _evaluate_parallel(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """coeffs [nb, n, 8] at points [k, 8] -> [nb, k, 8] at log depth: the
     powers x^0..x^(n-1) by doubling, then every coefficient-power product
-    and a tree sum.  The products are taken in blocks of coefficients
-    (at most ``_EVAL_BLOCK`` products each, so at the chain's
-    [4, 86400] x 128 points the peak stays a few GB instead of ~25 GB) and
-    the blocks' sums added; field sums are exact, so this equals the JAX
-    package's single zero-padded tree sum."""
+    and a tree sum.  The products are taken in blocks of coefficients (at
+    most ``limbs.MUL_BLOCK`` products each, one step of the product, so the
+    tree sum never holds more) and the blocks' sums added; field sums are
+    exact, so this equals the JAX package's single zero-padded tree sum."""
     nb, n = coeffs.shape[0], coeffs.shape[1]
     k = points.shape[0]
     pows = _power_table(points, n)  # [n, k, 8]
-    step = max(1, _EVAL_BLOCK // (nb * k))
+    step = max(1, L.MUL_BLOCK // (nb * k))
     acc = None
     for j in range(0, n, step):
         prods = L.mont_mul(pows[j : j + step], coeffs[:, j : j + step].unsqueeze(2))

@@ -1,0 +1,114 @@
+"""What the card's measurements share: its name and power limit, its peak
+rates, kernel times with CUDA events, and the bounds (the least time the
+card could take for a function's bytes or its integer instructions).
+
+Used by ``chip_smoke.py`` and the probes under ``tools/``; every function
+that reads the card needs one.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+
+import torch
+
+from ..ops import limbs as L
+from ..ops import ntt as N
+
+#: HBM bytes/s of one H100 SXM (published datasheet)
+HBM_BYTES_PER_S = 3.35e12
+#: thread-instructions an SM can issue per clock on sm_90: 4 schedulers,
+#: each one warp instruction (32 lanes) per clock.  No mix of integer
+#: instructions runs faster (integer multiply-adds go to the FMA pipe, the
+#: rest to the 64-lane ALU pipe), so SMs x this x the card's maximum SM clock
+#: is a ceiling of the integer rate and the bound derived from it a floor
+ISSUE_LANES_PER_SM = 128
+
+
+def mont_mul_ops() -> int:
+    """32-bit integer instructions one Montgomery product needs, counted
+    from csrc/field.cuh's CIOS with p's words (1, 0, 0, 0xCB800000).
+
+    A multiply-add gives one half of a wide product and folds the
+    accumulation and its carry in (PTX mad.lo.cc / madc.hi.cc); an add
+    with carry, a subtract with borrow or a select is one instruction.
+    Per word b[i] of the multiplier: the row a * b[i] is 4 low and 4 high
+    halves and the carries into t[4] and t[5] (10); the reduction is
+    m = -t[0] (1), one instruction for each word of p that is 0 or 1 (a
+    carry, an add), two for each other word (its two halves), and the carry
+    into t[4] (1).  Then the conditional subtraction of p: 4 subtracts with
+    borrow, 3 for the flag, 4 selects.  The same count for every kernel's
+    bound; the compiled code's count is a separate diagnostic
+    (``chip_smoke.sass_ops_per_product``).
+    """
+    words = [(L.P >> (32 * k)) & 0xFFFFFFFF for k in range(4)]
+    row = 2 * 4 + 2
+    reduction = 1 + sum(1 if w in (0, 1) else 2 for w in words) + 1
+    return 4 * (row + reduction) + 4 + 3 + 4
+
+
+#: 32-bit integer instructions per field operation on 4 words of 32 bits
+#: (product: 79, see mont_mul_ops; add/sub: 4 add-with-carry, 4 subtract,
+#: 4 selects and flags)
+MONT_MUL_OPS = mont_mul_ops()
+ADD_SUB_OPS = 16
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s() -> float:
+    """The card's peak rate of 32-bit integer instructions (its issue rate)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * ISSUE_LANES_PER_SM * mhz * 1e6
+
+
+def time_ms(fn, reps: int = 20, runs: int = 5) -> float:
+    """Median over ``runs`` of the mean time of ``reps`` calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / reps)
+    return statistics.median(samples)
+
+
+def bound_ms(nbytes: int, ops: int, int_rate: float) -> tuple[float, str]:
+    """The larger of the bytes' time at the HBM rate and the instructions'
+    at ``int_rate``, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / int_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ntt_bound(n: int, int_rate: float, batch: int = 1) -> tuple[float, str]:
+    """``batch`` transforms of n points as ``ops.ntt`` runs them: input and
+    output once as int64 limbs plus each pass's 16-byte stage twiddle
+    words; the log2(n) * n / 2 butterflies of a radix-2 transform.  The
+    four-step's fused twiddles are not counted, neither their tables nor
+    their products: the split is this design's choice, and a radix-2
+    transform needs neither."""
+    log2n = n.bit_length() - 1
+    passes = N.kernel_passes(n, batch, 1)
+    nbytes = 2 * n * batch * 64 + sum(p.m // 2 * 16 for p in passes)
+    ops = batch * log2n * n // 2 * (MONT_MUL_OPS + 2 * ADD_SUB_OPS)
+    return bound_ms(nbytes, ops, int_rate)
