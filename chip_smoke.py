@@ -5,12 +5,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels of zk_stark_tpu_torch/csrc in parallel;
+2. build the CUDA kernels of zk_stark_tpu_torch/csrc in parallel (with
+   each kernel's registers and spills from ptxas);
+2b. the kernels' Montgomery product (csrc/field.cuh) on the card against
+   Python integers: every pair of {0, 1, p-1, p-2} and seeded random
+   pairs;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with both times (CUDA events, median): at the signature's shapes, then
    at the chain's (the four-step NTT, fused-twiddle mode, at 2^18 and 2^20
    against the flat plain transform, forward and inverse; fold and leaf at
-   2^20; node at 2^19 parents);
+   2^20; node at 2^19 parents), with each NTT pass's block shape;
 4. the fixture-config signature with the deterministic rng: its sha256
    equals tests/fixtures/meta.json's, it verifies, tampered copies fail;
 5. the RPSSS path: keygen -> sign -> verify at the default config
@@ -35,7 +39,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ntt_passes_plain with both roots, 2^25 also against the flat ntt_plain
    and, as a batch of two columns, against each column alone; the round
    trip returning the input; the extension at 4 coset points against
-   evaluate_many (no NTT); times, bounds, peak device memory;
+   evaluate_many (no NTT); times, bounds, peak device memory; the ntt
+   kernel's registers and spills and each pass's block shape;
 7c. the NTT stage-variant probe (tools/ntt_variant_probe.py) at 1024 x
    1024: kernels a, b and c bit for bit against the plain stages and
    ntt_kernel, each timed beside its bound, launches counted over the
@@ -53,9 +58,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    random inputs, launches counted; the kernel bit for bit against the
    plain version at 256 and 2^14, the host hash on all 256 and on 68
    sampled inputs at 2^20, hash(1) against the test vector; times, hashes
-   per second and both ceilings (products x measured time per product;
-   the instructions counted from field.cuh's product, mont_mul_ops, and
-   the additions, over the issue rate);
+   per second and both ceilings (products of the kernel's exponent chains
+   x measured time per product; the instructions counted from field.cuh's
+   product, mont_mul_ops, and the additions, over the issue rate); the
+   kernel's registers and spills and its launch plan at each size;
 10. the numbers, the card line, the kernel table as one JSON line, and last
    the result line {"ok": true, "device": {...}}.
 
@@ -126,6 +132,8 @@ CHAIN_N, CHAIN_K = 1 << 18, 32
 #: a chain long enough that launch and ramp do not count: the sustained rate
 CHAIN_K_LONG = 1024
 COMPRESS_N = 1 << 18
+#: random pairs of the product check (besides the 16 edge pairs)
+PRODUCT_PAIRS = 1 << 14
 #: entry()'s batch, bench_rescue_batch's, and the leaf count of a chain-3200
 #: codeword
 RESCUE_SIZES = (256, 1 << 14, 1 << 20)
@@ -216,6 +224,7 @@ def compare_kernels(dev, int_rate: float) -> dict:
         p_ms = time_ms(lambda: N.ntt_plain(x, root), reps=2 if four_step else 3, runs=3)
         name, kernel = ("ntt_four_step", N.NTT_TW_KERNEL) if four_step else ("ntt", N.NTT_KERNEL)
         record(name, kernel, f"n={n}", err, k_ms, p_ms, ntt_bound(n, int_rate))
+        print(f"ntt n={n} plan: {plan_text(n, 1)}", flush=True)
 
     for n in (4096, 1 << 20):
         cw = random_mont(n, gen, dev)
@@ -464,13 +473,29 @@ def chain_path(dev, kernels) -> dict:
     return result
 
 
-def long_ntt_phase(dev, int_rate: float) -> dict:
+def plan_text(n: int, batch: int) -> str:
+    """The passes ntt_kernel launches for ``batch`` transforms of n points:
+    each pass's transform length, grid and block shape."""
+    parts = []
+    for p in N.kernel_passes(n, batch, 1):
+        b = N.block_shape(p)
+        parts.append(f"{p.kernel.name} m={p.m} grid={p.grid}: {1 << b.log2_count} transforms "
+                     f"a block along {'xyz'[b.dim]}, {b.threads} threads, loads "
+                     f"{'transform' if b.in_tmajor else 'element'}-major, stores "
+                     f"{'transform' if b.out_tmajor else 'element'}-major")
+        if p.grid[b.dim] % (1 << b.log2_count):
+            parts[-1] += " (last block masked)"
+    return "; ".join(parts)
+
+
+def long_ntt_phase(dev, int_rate: float, logs: dict | None = None) -> dict:
     """Phase 7b: the transform entry points beyond 2^20 points and one
     low-degree extension at 2^25; returns the three-pass row (1c) and the
     four-step's times at the larger sizes."""
     F = Field()
     gen = torch.Generator().manual_seed(1237)
     kernels = [N.NTT_KERNEL, N.NTT_TW_KERNEL, N.NTT_LONG_TW_KERNEL, N.NTT_LONG_KERNEL]
+    print(f"ptxas {ptxas_line(logs or {}, 'ntt')}", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     xs = {n: random_mont(n, gen, dev) for n in LONG_NTT_SIZES}
@@ -542,6 +567,7 @@ def long_ntt_phase(dev, int_rate: float) -> dict:
               f"{', '.join(f'{t:.4f}' for t in pass_ms)}), plain {p_ms:.1f} ms"
               f"{f', flat plain {flat_ms:.1f} ms' if flat_ms else ''}, bound {bound[0]:.6f} ms "
               f"({bound[1]})", flush=True)
+        print(f"long ntt n={n} plan: {plan_text(n, 1)}", flush=True)
 
     # the extension at 4 coset points, against a direct evaluation (no NTT)
     require(tuple(codeword.shape) == (LDE_POINTS, L.NLIMB), f"codeword shape {codeword.shape}")
@@ -587,26 +613,43 @@ def probe_phase(dev) -> dict:
     return rows
 
 
-def pow_products(e: int, windowed: bool = False) -> int:
-    """Montgomery products that ``limbs.mont_pow`` (or, with ``windowed``,
-    ``limbs.mont_pow_windowed`` and the Rescue kernel's inverse S-box)
-    spends on the exponent ``e``."""
-    if e == 0:
-        return 0
-    if windowed and e.bit_length() > L.POW_UNROLL_BITS:
-        digits = L.window_digits(e)
-        return ((1 << L.POW_WINDOW) - 2 + L.POW_WINDOW * (len(digits) - 1)
-                + sum(1 for d in digits[1:] if d))
-    return e.bit_length() - 1 + bin(e).count("1") - 1
-
-
 def permutation_counts(m: int, n_rounds: int, alpha: int, alpha_inv: int) -> tuple[int, int]:
-    """(Montgomery products, modular additions) of one Rescue permutation,
-    as both versions compute it: per round and register the two S-boxes;
-    two m x m MDS products, m - 1 additions a row; two additions of
-    constants."""
-    sboxes = pow_products(alpha) + pow_products(alpha_inv, windowed=True)
-    return n_rounds * (m * sboxes + 2 * m * m), n_rounds * 2 * (m * (m - 1) + m)
+    """(Montgomery products, modular additions) of one Rescue permutation
+    as the kernel computes it: per round and register the two S-boxes'
+    exponent chains (rescue_ops.exponent_chain); two m x m MDS products,
+    m - 1 additions a row; two additions of constants."""
+    return (R.products_per_permutation(m, n_rounds, alpha, alpha_inv),
+            n_rounds * 2 * (m * (m - 1) + m))
+
+
+def ptxas_line(logs: dict, name: str) -> str:
+    """The registers and spills ptxas printed for library ``name``'s
+    kernels, or a note that it was built before this run."""
+    if name not in logs:
+        return f"{name}: built before this run (no ptxas output)"
+    lines = [ln.strip() for ln in logs[name].splitlines()
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    return f"{name}: " + " | ".join(lines)
+
+
+def product_phase(dev) -> dict:
+    """Phase 2b: field.cuh's product on the card against Python integers."""
+    edge = [0, 1, L.P - 1, L.P - 2]
+    gen = torch.Generator().manual_seed(45)
+    rand = L.mont_to_ints(random_mont(2 * PRODUCT_PAIRS, gen, "cpu"))
+    a_vals = [a for a in edge for _ in edge] + [int(v) for v in rand[:PRODUCT_PAIRS]]
+    b_vals = [b for _ in edge for b in edge] + [int(v) for v in rand[PRODUCT_PAIRS:]]
+    a = L.from_numpy(L.ints_to_limbs(a_vals), dev)
+    b = L.from_numpy(L.ints_to_limbs(b_vals), dev)
+    got = MC.mont_mul_kernel(a, b)
+    r_inv = pow(1 << 128, -1, L.P)
+    want = [x * y * r_inv % L.P for x, y in zip(a_vals, b_vals)]
+    require(list(L.limbs_to_ints(got)) == want, "field.cuh mont_mul differs from integers")
+    require(torch.equal(got, L.mont_mul(a, b)), "field.cuh mont_mul differs from limbs.mont_mul")
+    print(f"product: field.cuh mont_mul equals Python integers on the {len(edge) ** 2} pairs of "
+          f"{{0, 1, p-1, p-2}} and {PRODUCT_PAIRS} random pairs ({MONT_MUL_OPS} PTX instructions)",
+          flush=True)
+    return {"pairs": len(a_vals), "ptx_ops": MONT_MUL_OPS}
 
 
 def sass_ops_per_product() -> float:
@@ -732,9 +775,11 @@ def compress_phase(dev, int_rate: float) -> dict:
     return row
 
 
-def rescue_phase(dev, int_rate: float, ns_per_product: float, sass_per_product: float) -> dict:
+def rescue_phase(dev, int_rate: float, ns_per_product: float, sass_per_product: float,
+                 logs: dict | None = None) -> dict:
     """Phase 9: the batched Rescue-Prime hash at 256, 2^14 and 2^20."""
     rp = RescuePrime(Field())
+    print(f"ptxas {ptxas_line(logs or {}, 'rescue')}", flush=True)
     gen = torch.Generator().manual_seed(44)
     inputs = {256: L.ints_to_mont(range(256), dev)}
     for n in RESCUE_SIZES[1:]:
@@ -783,13 +828,14 @@ def rescue_phase(dev, int_rate: float, ns_per_product: float, sass_per_product: 
         size["bound_ms"], size["bound_by"] = max(
             (2 * n * rp.m * 64 / HBM_BYTES_PER_S * 1e3, "bytes"),
             (size["ceiling_issue_ms"], "operations"))
+        size["plan"] = R.launch_plan(n)
         row["by_size"][f"n={n}"] = size
         plain_txt = f"{size['plain_ms']:.1f} ms" if "plain_ms" in size else "not timed"
         print(f"rescue n={n}: kernel {size['ms']:.4f} ms ({size['hashes_per_s']:.4e} hashes/s), "
               f"plain {plain_txt}, ceilings: measured-rate "
               f"{size['ceiling_measured_ms']:.4f} ms, issue-rate {size['ceiling_issue_ms']:.4f} ms "
               f"({products:.4e} products; at the compiled SASS count "
-              f"{size['ceiling_sass_ms']:.4f} ms)", flush=True)
+              f"{size['ceiling_sass_ms']:.4f} ms); launch: {size['plan']}", flush=True)
     # the headline is the largest size the plain version is timed at (at
     # 2^20 it would take minutes: ~4,700 tensor-code products of ~75 launches
     # on [2^20, 2, 8])
@@ -816,24 +862,24 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build(sorted({k.library for k in chain_kernels + long_kernels + hash_kernels}))
     build_s = time.perf_counter() - t0
-    for name, log in logs.items():
-        ptxas = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"build {name}: " + " | ".join(x.strip() for x in ptxas), flush=True)
+    for name in logs:
+        print(f"build {ptxas_line(logs, name)}", flush=True)
     print(f"build: {len(logs)} libraries in {build_s:.1f} s", flush=True)
 
     int_rate = int32_ops_per_s()
     print(f"int32 peak: {int_rate:.4e} instructions/s", flush=True)
+    product = product_phase(dev)
     rows = compare_kernels(dev, int_rate)
     fixture_phase(dev)
     main, signer = main_path(dev, rpsss_kernels)
     main["profile"] = profile_phase(*signer)
     chain_fixture_phase(dev)
     chain = chain_path(dev, chain_kernels)
-    long_ntt = long_ntt_phase(dev, int_rate)
+    long_ntt = long_ntt_phase(dev, int_rate, logs)
     variants = probe_phase(dev)
     mm = montmul_chain_phase(dev, int_rate)
     comp = compress_phase(dev, int_rate)
-    rescue = rescue_phase(dev, int_rate, mm["ns_per_product"], mm["sass_ops_per_product"])
+    rescue = rescue_phase(dev, int_rate, mm["ns_per_product"], mm["sass_ops_per_product"], logs)
     # the leaf and node rows beside the measured compression rate
     for name in ("leaf", "node"):
         for size, entry in rows[name]["by_size"].items():
@@ -869,7 +915,7 @@ def main() -> int:
         }
         entry.update({key: v for key, v in row.items() if key not in entry and key != "kernel"})
         table.append(entry)
-    print(json.dumps({"main_path": main, "chain_path": chain, "card": card,
+    print(json.dumps({"main_path": main, "chain_path": chain, "card": card, "product": product,
                       "build_s": build_s, "int32_ops_per_s": int_rate}))
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))

@@ -1,10 +1,12 @@
 """The CUDA kernel sources' arithmetic, run on the CPU.
 
 There is no nvcc here, so each ``csrc/*.cu`` is compiled with the host C++
-compiler under a thin emulation of the CUDA keywords (one thread per block,
-blocks run one after another, barriers are no-ops; the launch wrappers sit
-under ``#ifdef __CUDACC__`` and drop out) and its kernels are compared with
-the plain PyTorch versions.  On the card, chip_smoke.py makes the same
+compiler under a thin emulation of the CUDA keywords (blocks run one after
+another; a block of one thread, where barriers are no-ops, or of several
+threads, each a host thread with its own ``threadIdx`` and
+``__syncthreads()`` a barrier over them; the launch wrappers sit under
+``#ifdef __CUDACC__`` and drop out) and its kernels are compared with the
+plain PyTorch versions.  On the card, chip_smoke.py makes the same
 comparison with the real compiler.
 """
 
@@ -34,14 +36,35 @@ F = Field()
 
 _HARNESS = r"""
 #include <stdint.h>
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+#include <vector>
 struct Dim { unsigned x, y, z; };
-static Dim threadIdx, blockIdx, blockDim;
+static thread_local Dim threadIdx;
+static Dim blockIdx, blockDim;
+// __syncthreads(): every thread of the block waits for all the others
+struct Barrier {
+  std::mutex m;
+  std::condition_variable cv;
+  unsigned count = 1, waiting = 0, phase = 0;
+  void wait() {
+    if (count <= 1) return;
+    std::unique_lock<std::mutex> lk(m);
+    const unsigned ph = phase;
+    if (++waiting == count) { waiting = 0; ++phase; cv.notify_all(); }
+    else cv.wait(lk, [&] { return phase != ph; });
+  }
+};
+static Barrier block_barrier;
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
 #define __shared__
-static inline void __syncthreads() {}
+#define __launch_bounds__(n)
+struct alignas(16) longlong2 { long long x, y; };
+static inline void __syncthreads() { block_barrier.wait(); }
 #include "ntt.cu"
 #include "ntt_variants.cu"
 Fe4 sh[1 << 13];
@@ -51,20 +74,41 @@ Fe4 sh[1 << 13];
 uint32_t rescue_smem[1 << 14];
 #include "montmul_chain.cu"
 
+extern "C" void host_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n) {
+  for (int i = 0; i < n; ++i)
+    zk::store_fe(out + 8 * i, zk::mont_mul(zk::load_fe(a + 8 * i), zk::load_fe(b + 8 * i)));
+}
+
 static void grid(unsigned blocks) {
   blockDim.x = 1; threadIdx.x = 0; blockIdx.y = blockIdx.z = 0; (void)blocks;
+  block_barrier.count = 1;
+}
+// one block of `threads` threads, each a host thread
+template <class F> static void run_block(unsigned threads, F body) {
+  blockDim.x = threads;
+  block_barrier.count = threads;
+  std::vector<std::thread> ts;
+  for (unsigned t = 0; t < threads; ++t)
+    ts.emplace_back([=] { threadIdx.x = t; threadIdx.y = threadIdx.z = 0; body(); });
+  for (auto& th : ts) th.join();
 }
 extern "C" void host_ntt(const int64_t* x, int64_t* y, const uint32_t* tw, const uint32_t* ft,
                          int log2n, int gx, int gy, int gz, long long ibx, long long iby,
                          long long ibz, long long ie, long long obx, long long oby,
-                         long long obz, long long oe) {
-  grid(gx);
-  for (int bz = 0; bz < gz; ++bz)
-    for (int by = 0; by < gy; ++by)
-      for (int bx = 0; bx < gx; ++bx) {
+                         long long obz, long long oe, int dim, int log2_count,
+                         int in_tmajor, int out_tmajor, int threads) {
+  int g[3] = {gx, gy, gz};
+  const Tile tile{dim, log2_count, g[dim], in_tmajor, out_tmajor};
+  g[dim] = (g[dim] + (1 << log2_count) - 1) >> log2_count;
+  grid(g[0]);
+  for (int bz = 0; bz < g[2]; ++bz)
+    for (int by = 0; by < g[1]; ++by)
+      for (int bx = 0; bx < g[0]; ++bx) {
         blockIdx.x = bx; blockIdx.y = by; blockIdx.z = bz;
-        ntt_stages_kernel(x, y, tw, ft, log2n, Strides{ibx, iby, ibz, ie},
-                          Strides{obx, oby, obz, oe});
+        run_block(threads, [=] {
+          ntt_stages_kernel(x, y, tw, ft, log2n, Strides{ibx, iby, ibz, ie},
+                            Strides{obx, oby, obz, oe}, tile);
+        });
       }
 }
 extern "C" void host_variant(char which, const int64_t* x, int64_t* y, const uint32_t* tw,
@@ -96,13 +140,15 @@ extern "C" void host_compress(const int64_t* mh, const int64_t* ml, const int64_
   for (int i = 0; i < n; ++i) { blockIdx.x = i; compress_kernel(mh, ml, t, oh, ol, n); }
 }
 extern "C" void host_rescue(const int64_t* st, int64_t* out, const int64_t* mds,
-                            const int64_t* rc, int n, int rounds, const uint32_t* a, int a_bits,
-                            const uint32_t* ai, int ai_bits) {
+                            const int64_t* rc, int n, int rounds, const uint32_t* a, int a_len,
+                            const uint32_t* ai, int ai_len, int threads) {
+  Chain alpha{a_len, {}}, alpha_inv{ai_len, {}};
+  for (int k = 0; k < a_len; ++k) alpha.step[k] = a[k];
+  for (int k = 0; k < ai_len; ++k) alpha_inv.step[k] = ai[k];
   grid(n);
-  Exp alpha{{a[0], a[1], a[2], a[3]}, a_bits}, alpha_inv{{ai[0], ai[1], ai[2], ai[3]}, ai_bits};
-  for (int i = 0; i < n; ++i) {
-    blockIdx.x = i;
-    rescue_kernel(st, out, mds, rc, n, rounds, alpha, alpha_inv);
+  for (int b = 0; b * threads < 2 * n; ++b) {
+    blockIdx.x = b;
+    run_block(threads, [&] { rescue_kernel(st, out, mds, rc, n, rounds, alpha, alpha_inv); });
   }
 }
 extern "C" void host_chain(const int64_t* x, int64_t* y, int n, int k) {
@@ -122,17 +168,19 @@ def lib(tmp_path_factory):
     src.write_text(_HARNESS)
     so = out / "libharness.so"
     subprocess.run(
-        [cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-Wno-unknown-pragmas",
+        [cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
          f"-I{CSRC}", "-o", str(so), str(src)],
         check=True, capture_output=True, timeout=120,
     )
     lib = ctypes.CDLL(str(so))
-    lib.host_ntt.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
+    lib.host_ntt.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
+                             + [ctypes.c_int] * 5)
     lib.host_variant.argtypes = [ctypes.c_char] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.host_compress.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
     words = ctypes.POINTER(ctypes.c_uint32)
     lib.host_rescue.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                                + [words, ctypes.c_int, words, ctypes.c_int])
+                                + [words, ctypes.c_int, words, ctypes.c_int, ctypes.c_int])
+    lib.host_mont_mul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.host_chain.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
     return lib
 
@@ -148,20 +196,26 @@ def _rand_mont(seed, n):
     return L.ints_to_mont([(int(h) << 63 | int(l)) % P for h, l in zip(hi, lo)], "cpu")
 
 
-def _ntt_source(lib, x, root):
+def _ntt_source(lib, x, root, blocks=None, threads=1):
     """The passes ntt_kernel launches on the card (N.kernel_passes: the
-    same tables, grids and strides), run through the emulated source;
-    returns the output and the kernels of the passes."""
+    same tables, grids and strides; N.block_shape: the same tiles), run
+    through the emulated source with ``threads`` threads a block; returns
+    the output and the kernels of the passes (and appends each pass's block
+    shape to ``blocks``)."""
     n, batch = x.shape[0], x[0].numel() // L.NLIMB
     src, kernels = x, []
     for p in N.kernel_passes(n, batch, root):
         tw, ft = N.pass_tables(p, "cpu")
+        blk = N.block_shape(p)
         dst = torch.empty_like(x)
         lib.host_ntt(src.data_ptr(), dst.data_ptr(), tw.data_ptr(),
                      None if ft is None else ft.data_ptr(),
-                     p.m.bit_length() - 1, *p.grid, *p.ins, *p.outs)
+                     p.m.bit_length() - 1, *p.grid, *p.ins, *p.outs, blk.dim, blk.log2_count,
+                     int(blk.in_tmajor), int(blk.out_tmajor), threads)
         src = dst
         kernels.append(p.kernel)
+        if blocks is not None:
+            blocks.append((p, blk))
     return src, kernels
 
 
@@ -203,6 +257,53 @@ def test_ntt_three_pass_source(lib, monkeypatch, n, batch):
     assert torch.equal(y, N.ntt_plain(x, root))
     inv = pow(root, -1, P)
     assert torch.equal(_ntt_source(lib, x, inv)[0], N.ntt_plain(x, inv))
+
+
+@pytest.mark.parametrize(
+    "n, batch, max_kernel_n, tile, threads",
+    [(16, 5, 1 << 12, 1 << 5, 1), (1 << 8, 3, 1 << 5, 1 << 6, 1), (1 << 9, 3, 1 << 3, 1 << 5, 1),
+     (1 << 9, 1, 1 << 3, 1 << 4, 1), (1 << 7, 5, 1 << 12, 1 << 8, 3), (1 << 8, 3, 1 << 4, 1 << 6, 5)],
+    ids=["one-pass", "four-step", "three-pass", "three-pass-batch-1", "one-pass-3-threads",
+         "four-step-5-threads"],
+)
+def test_ntt_block_shapes_source(lib, monkeypatch, n, batch, max_kernel_n, tile, threads):
+    """Every plan with tiles of several transforms, with a batch of 3 or 5
+    that leaves a ragged last block (the transforms along the tile's index
+    not a multiple of its count), the block limits lowered so that small
+    sizes reach them, forward and inverse, against the flat plain
+    transform; with blocks of one thread, and of 3 or 5 threads that share
+    the tile's chunks and butterflies unevenly between barriers."""
+    monkeypatch.setattr(N, "MAX_KERNEL_N", max_kernel_n)
+    monkeypatch.setattr(N, "TILE_ELEMS", tile)
+    root = F.primitive_nth_root(n).value
+    x = _rand_mont(n + 5, batch * n).reshape(n, batch, L.NLIMB)
+    blocks = []
+    y, _ = _ntt_source(lib, x, root, blocks, threads)
+    assert torch.equal(y, N.ntt_plain(x, root))
+    inv = pow(root, -1, P)
+    assert torch.equal(_ntt_source(lib, x, inv, threads=threads)[0], N.ntt_plain(x, inv))
+    counts = [(1 << blk.log2_count, p.grid[blk.dim]) for p, blk in blocks]
+    assert any(c > 1 for c, _ in counts), counts
+    if batch > 1:  # a batch of 1 leaves every extent a power of two
+        assert any(extent % c for c, extent in counts), counts
+    assert all(blk.threads <= N.LONE_BLOCK_THREADS for _, blk in blocks)
+
+
+def test_mont_mul_source(lib):
+    """The product of field.cuh (its host branch) against Python integers:
+    every pair of {0, 1, p-1, p-2}, then 4096 seeded random pairs."""
+    edge = [0, 1, P - 1, P - 2]
+    rng = np.random.default_rng(11)
+    rand = [int(h) << 64 | int(lo) for h, lo in zip(rng.integers(0, 1 << 63, 8192, dtype=np.uint64),
+                                                    rng.integers(0, 1 << 63, 8192, dtype=np.uint64))]
+    a_vals = [a for a in edge for _ in edge] + [v % P for v in rand[:4096]]
+    b_vals = [b for _ in edge for b in edge] + [v % P for v in rand[4096:]]
+    a = L.from_numpy(L.ints_to_limbs(a_vals), "cpu")
+    b = L.from_numpy(L.ints_to_limbs(b_vals), "cpu")
+    out = torch.empty_like(a)
+    lib.host_mont_mul(*_ptrs(a, b, out), len(a_vals))
+    r_inv = pow(1 << 128, -1, P)
+    assert list(L.limbs_to_ints(out)) == [x * y * r_inv % P for x, y in zip(a_vals, b_vals)]
 
 
 @pytest.mark.parametrize("which", V.VARIANTS)
@@ -274,21 +375,42 @@ def test_montmul_chain_kernel_source(lib, k):
 
 
 @pytest.mark.parametrize(
-    "alpha, alpha_inv, rounds",
-    [(None, None, 27), (0, 77, 2), (5, (1 << 9) + 3, 2)],
-    ids=["default-27-rounds", "alpha0-short-inverse", "9-bit-inverse"],
+    "alpha, alpha_inv, rounds, n, threads",
+    [(None, None, 27, 4, 2), (0, 77, 2, 4, 2), (5, (1 << 9) + 3, 2, 4, 2), (None, None, 2, 1, 2),
+     (None, None, 2, 7, 4), (None, None, 3, 5, 6)],
+    ids=["default-27-rounds", "alpha0-short-inverse", "9-bit-inverse", "one-state",
+         "ragged-block-of-4", "ragged-block-of-6"],
 )
-def test_rescue_kernel_source(lib, alpha, alpha_inv, rounds):
-    """4 random full states through the rounds: the default instance's
-    exponents over all 27, then exponents that reach the kernel's other
-    branches (alpha = 0, an inverse exponent of 7 and of 10 bits)."""
+def test_rescue_kernel_source(lib, alpha, alpha_inv, rounds, n, threads):
+    """n random full states through the rounds, two threads a state: the
+    default instance's exponents over all 27, exponents that reach the
+    chains' other forms (alpha = 0, an inverse exponent of 7 and of 10
+    bits), a single state, and 7 and 5 states in blocks of 4 and 6 threads
+    (the last block half idle: its spare threads meet every barrier and
+    store nothing)."""
     rp = RescuePrime(F)
     alpha = rp.alpha if alpha is None else alpha
     alpha_inv = rp.alpha_inv if alpha_inv is None else alpha_inv
     mds, rc = rp._device_constants("cpu")
-    state = _rand_mont(7, 8).reshape(4, 2, L.NLIMB)
-    out = torch.empty_like(state)
-    a_words, a_bits = R._exponent(alpha, "alpha")
-    ai_words, ai_bits = R._exponent(alpha_inv, "alpha_inv")
-    lib.host_rescue(*_ptrs(state, out, mds, rc), 4, rounds, a_words, a_bits, ai_words, ai_bits)
+    state = _rand_mont(7, 2 * n).reshape(n, 2, L.NLIMB)
+    out = torch.full_like(state, -1)
+    a_steps, a_len = R._steps(alpha)
+    ai_steps, ai_len = R._steps(alpha_inv)
+    lib.host_rescue(*_ptrs(state, out, mds, rc), n, rounds, a_steps, a_len, ai_steps, ai_len,
+                    threads)
     assert torch.equal(out, R.permutation_plain(state, mds, rc, rounds, alpha, alpha_inv))
+
+
+def test_mont_mul_ops_counts_the_ptx():
+    """The bounds' instruction count is the PTX block of field.cuh's product
+    as written: 35 for the schoolbook product, 19 for the reduction, 10 for
+    the subtraction of p; 41 of them multiplies (32 halves of the 16 word
+    products, 9 in the reduction)."""
+    from zk_stark_tpu_torch.tools import measure
+
+    src = (CSRC / "field.cuh").read_text()
+    block = src[src.index("// mont_mul PTX begin"):src.index("// mont_mul PTX end")]
+    opcodes = [line.split('"')[1].split()[0] for line in block.splitlines()
+               if line.strip().endswith(';\\n\\t"') and not line.strip().startswith('".reg')]
+    assert measure.mont_mul_ops() == measure.MONT_MUL_OPS == len(opcodes) == 64
+    assert sum(op.startswith(("mul.", "mad")) for op in opcodes) == 32 + 9  # 16 a*b pairs, 2 halves

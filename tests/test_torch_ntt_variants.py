@@ -80,3 +80,15 @@ def test_probe_on_the_cpu():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         probe.run()
+
+
+def test_kernel_shape_probe_on_the_cpu():
+    """The shape probe needs a card (it raises on the CPU), and the
+    statements its split removes from csrc/ntt.cu are still there."""
+    from zk_stark_tpu_torch.ops import _build
+    from zk_stark_tpu_torch.tools import kernel_shape_probe as ksp
+
+    src = (_build.CSRC / "ntt.cu").read_text()
+    assert all(piece in src for piece in (ksp._STAGES, ksp._LOAD, ksp._STORE))
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        ksp.run(device="cpu")

@@ -95,10 +95,13 @@ def test_permutation_refuses_short_constants(rp):
 
 def test_products_per_permutation(rp, monkeypatch):
     """chip_smoke.py's count of a permutation's products and additions (its
-    bound) equals what the plain version computes, counted per state."""
-    # 27 rounds x (2 x (2 for x^3 + 169 for x^alpha_inv) + 2 x 4 for MDS)
-    assert chip_smoke.pow_products(rp.alpha_inv, windowed=True) == 169
-    assert chip_smoke.permutation_counts(2, 27, rp.alpha, rp.alpha_inv) == (27 * 350, 27 * 8)
+    bound) equals what the kernel's exponent chains compute, counted per
+    state, and the kernel's rounds compute the plain permutation."""
+    # 27 rounds x (2 x (2 for x^3 + 156 for x^alpha_inv) + 2 x 4 for MDS);
+    # the plain version's fixed 4-bit window spends 169 on x^alpha_inv
+    assert R.chain_products(R.exponent_chain(rp.alpha_inv)) == 156
+    assert chip_smoke.permutation_counts(2, 27, rp.alpha, rp.alpha_inv) == (27 * 324, 27 * 8)
+    assert R.products_per_permutation(2, 27, rp.alpha, rp.alpha_inv) == 27 * 324
     counts = {"mul": 0, "add": 0}
 
     def counted(fn, key):
@@ -108,13 +111,38 @@ def test_products_per_permutation(rp, monkeypatch):
             return out
         return wrapper
 
+    mds, rc = rp._device_constants("cpu")
+    state = L.ints_to_mont([HASH_A, 7], "cpu").reshape(1, 2, L.NLIMB)
+    want = R.permutation_plain(state, mds, rc, 2, rp.alpha, rp.alpha_inv)
     monkeypatch.setattr(L, "mont_mul", counted(L.mont_mul, "mul"))
     monkeypatch.setattr(L, "add_mod", counted(L.add_mod, "add"))
-    mds, rc = rp._device_constants("cpu")
-    R.permutation_plain(torch.zeros((1, 2, L.NLIMB), dtype=L.DTYPE), mds, rc, 2,
-                        rp.alpha, rp.alpha_inv)
+    s = state
+    for r in range(2):  # the kernel's round: chains for the S-boxes
+        for e, c0 in ((rp.alpha, 2 * r * 2), (rp.alpha_inv, 2 * r * 2 + 2)):
+            s = R.chain_pow(s, R.exponent_chain(e))
+            s = L.add_mod(R._mds_mul(s, mds), rc[c0:c0 + 2])
     assert (counts["mul"], counts["add"]) == chip_smoke.permutation_counts(
         2, 2, rp.alpha, rp.alpha_inv)
+    assert torch.equal(s, want)
+
+
+@pytest.mark.parametrize(
+    "e", [180331931428153586757283157844700080811, P - 2, 0b1011011, (1 << 9) + 3, 3, 2, 1, 0,
+          1 << 127, (1 << 128) - 1],
+    ids=["alpha_inv", "p-2", "7-bit", "10-bit", "3", "2", "1", "zero", "2^127", "2^128-1"],
+)
+def test_exponent_chain(e):
+    """The kernel's exponent chain of e, run as tensor code, equals
+    pow(x, e, p); it fits the kernel's slots and steps, and spends no more
+    products than square-and-multiply."""
+    vals = [0, 1, 2, 12345, P - 1, HASH_A]
+    steps = R.exponent_chain(e)
+    got = L.mont_to_ints(R.chain_pow(L.ints_to_mont(vals, "cpu"), steps))
+    assert [int(v) for v in got] == [pow(v, e, P) for v in vals]
+    assert 0 < len(steps) <= R.KERNEL_MAX_STEPS
+    fields = [((s >> 8) & 0xF, (s >> 12) & 0xF, (s >> 16) & 0xF) for s in steps]
+    assert all(f in (R.NONE, R.ONE) or f < R.KERNEL_SLOTS for slots in fields for f in slots)
+    assert R.chain_products(steps) <= max(0, e.bit_length() - 1 + bin(e).count("1") - 1)
 
 
 @pytest.mark.parametrize(

@@ -1,5 +1,5 @@
-// Whole radix-2 NTT of one transform in shared memory, with an optional
-// four-step twiddle multiplied in before the store.
+// Whole radix-2 NTTs of a tile of neighbouring transforms in shared memory,
+// with an optional four-step twiddle multiplied in before the store.
 //
 // Replaces: _ntt_stages_kernel (zk_stark_tpu/ops/ntt_pallas.py:180), launched
 // by _ntt_planes_call (:311), in both its modes.  The TPU kernel runs the
@@ -10,34 +10,40 @@
 // (_four_step_pallas :408, ntt_mont_pallas :449) and the recursive split of
 // long columns (_planes_long_ntt :369) are in ops/ntt.py.
 //
-// Here one thread block owns one transform of n <= 2^12 points: it loads the
-// input bit-reversed into shared memory (16 bytes per element as 4 words of
-// 32 bits: 64 KB at n = 4096, above the 48 KB default, hence the attribute
-// set before the launch), runs all stages between __syncthreads(), and
-// writes back in natural order.  The grid is three batch dimensions;
+// The grid is three batch dimensions of transforms of n <= 2^12 points;
 // element i of transform (bx, by, bz) lives at element offset
 // bx*sx + by*sy + bz*sz + i*se of its tensor, for the input and the output
 // separately.  So the four-step split (two launches) and the three-pass
 // split beyond 2^24 points (three launches) read columns and write
 // transposed rows straight from and to device memory, with no transpose
-// pass between launches (an element is 64 contiguous bytes, two full
-// 32-byte sectors, whatever the stride); the third grid index is the batch
-// column where a transform is addressed by two indices of its own.  In the
-// fused mode (ft != nullptr), element k of transform bx is multiplied by
-// ft[bx * n + k] before the store: the four-step twiddle costs no pass of
-// its own, nor does the inner twiddle of the three-pass split.
-
-// Bound: each stage does n/2 Montgomery products (~16 32x32->64 multiplies
-// plus carries each) and 2 modular add/sub on data that never leaves shared
+// pass between launches.  In the fused mode (ft != nullptr), element k of
+// transform bx is multiplied by ft[bx * n + k] before the store: the
+// four-step twiddle costs no pass of its own, nor does the inner twiddle of
+// the three-pass split.
+//
+// A block holds 2^log2_count transforms that are neighbours along one grid
+// index (tile.dim; ops/ntt.py block_shape chooses it, the one whose stride
+// is 1 on a side where the transform's own elements are not contiguous, and
+// the count, up to 2048 / n transforms: 32 KB), the last block masked.  An element
+// is 64 bytes of int64 limbs; its 16-byte quarter k (limbs 2k, 2k+1) is
+// exactly its 32-bit word k.  Loads and stores walk the tile in 16-byte
+// chunks, neighbouring threads on neighbouring chunks in memory order:
+// transform-major where the tile index has stride 1 (a warp covers 8
+// transforms' element i, 512 contiguous bytes), element-major where the
+// transform's elements are contiguous.  Each thread repacks its chunk to a
+// word in shared memory (TileLayout, ntt_stages.cuh: padded and swizzled
+// against bank conflicts); the stages of all the tile's transforms are one
+// block-stride loop.
+//
+// Bound: each stage does n/2 Montgomery products (field.cuh: 64
+// instructions) and 2 modular add/sub on data that never leaves shared
 // memory; device memory sees the input and output once (64 B each per
-// element as int64 limbs) plus the 16-byte twiddles.  A four-step transform
-// of 2^20 points moves 134 MB (input and output once), 0.040 ms at
-// 3.35 TB/s, against ~1.2e9 integer instructions, 0.036 ms at the SM issue
-// rate: bytes bound it, and the 1024 blocks of a pass fill every SM.  On an
-// H100 80GB HBM3 at 700 W (chip_smoke.py) the two passes take 0.44 ms, ~10x
-// the bound: each thread loads its strided elements one by one and a block
-// holds one 16 KB transform.  At n <= 4096 with one transform a single block
-// runs on 1 SM of 132, so the time is latency- and issue-bound on that SM.
+// element as int64 limbs) plus the 16-byte twiddles.  A four-step
+// transform of 2^20 points moves 134 MB, 0.040 ms at 3.35 TB/s, and bytes
+// bound the transforms from 4096 points to 2^25 (tools/measure.py
+// ntt_bound).  The old design (one transform a block, each thread loading
+// whole elements as eight strided int64 limbs) ran ~10x its bound
+// (PERF.md).
 
 #include <stdint.h>
 
@@ -48,48 +54,109 @@ struct Strides {
     long long bx, by, bz, e;
 };
 
+// a block's tile: 2^log2_count transforms along grid index dim (0, 1, 2 for
+// x, y, z) of extent transforms in all; input and output chunks walked
+// transform-major (1) or element-major (0)
+struct Tile {
+    int dim, log2_count, extent, in_tmajor, out_tmajor;
+};
+
+__device__ __forceinline__ long long dim_stride(const Strides& s, int dim) {
+    return dim == 0 ? s.bx : (dim == 1 ? s.by : s.bz);
+}
+
+// transform t and element i of the tile's chunk e (of 16-byte chunks / 4)
+__device__ __forceinline__ void tile_index(int e, bool tmajor, int log2n, int log2_count,
+                                           int& t, int& i) {
+    if (tmajor) {
+        t = e & ((1 << log2_count) - 1);
+        i = e >> log2_count;
+    } else {
+        t = e >> log2n;
+        i = e & ((1 << log2n) - 1);
+    }
+}
+
 // x, y: int64 limbs (Montgomery) laid out by the strides; tw: [n/2, 4]
 // uint32 words of root^k (Montgomery), k < n/2, stage s using
-// root^(j * n / 2^(s+1)); ft: nullptr, or [gridDim.x, n, 4] words.
-extern "C" __global__ void ntt_stages_kernel(
+// root^(j * n / 2^(s+1)); ft: nullptr, or [extent along x, n, 4] words.
+// Dynamic shared memory: 2^log2_count * (n + 1) elements of 16 bytes.
+extern "C" __global__ void __launch_bounds__(1024) ntt_stages_kernel(
     const int64_t* __restrict__ x, int64_t* __restrict__ y,
     const uint32_t* __restrict__ tw, const uint32_t* __restrict__ ft,
-    int log2n, Strides in, Strides out) {
+    int log2n, Strides in, Strides out, Tile tile) {
     extern __shared__ Fe4 sh[];
     const int n = 1 << log2n;
-    const long long bx = blockIdx.x, by = blockIdx.y, bz = blockIdx.z;
-    const int64_t* xb = x + 8 * (bx * in.bx + by * in.by + bz * in.bz);
-    int64_t* yb = y + 8 * (bx * out.bx + by * out.by + bz * out.bz);
+    // the tile's first transform (scalars, not an array indexed by
+    // tile.dim, which would live in local memory)
+    const int sx = tile.dim == 0 ? tile.log2_count : 0;
+    const int sy = tile.dim == 1 ? tile.log2_count : 0;
+    const int sz = tile.dim == 2 ? tile.log2_count : 0;
+    const long long ix = (long long)blockIdx.x << sx, iy = (long long)blockIdx.y << sy,
+                    iz = (long long)blockIdx.z << sz;
+    const long long left = tile.extent - (tile.dim == 0 ? ix : (tile.dim == 1 ? iy : iz));
+    const int count = left < (1 << tile.log2_count) ? (int)left : 1 << tile.log2_count;
+    const int64_t* xb = x + 8 * (ix * in.bx + iy * in.by + iz * in.bz);
+    int64_t* yb = y + 8 * (ix * out.bx + iy * out.by + iz * out.bz);
+    const long long in_t = dim_stride(in, tile.dim), out_t = dim_stride(out, tile.dim);
+    const TileLayout at{log2n};
+    uint32_t* words = reinterpret_cast<uint32_t*>(sh);
+    const int chunks = n << (tile.log2_count + 2);
 
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        sh[bit_reverse((unsigned)i, log2n)] = to4(zk::load_fe(xb + 8 * (i * in.e)));
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+        int t, i;
+        tile_index(c >> 2, tile.in_tmajor, log2n, tile.log2_count, t, i);
+        if (t >= count) continue;
+        const longlong2 v = *reinterpret_cast<const longlong2*>(
+            xb + 8 * (t * in_t + i * in.e) + 2 * (c & 3));
+        words[4 * at(t, (int)bit_reverse((unsigned)i, log2n)) + (c & 3)] =
+            (uint32_t)v.x | ((uint32_t)v.y << 16);
     }
     __syncthreads();
-    stages_shared(sh, reinterpret_cast<const Fe4*>(tw), log2n, 0);
+    stages_shared(sh, reinterpret_cast<const Fe4*>(tw), log2n, 0, count, at);
 
-    const Fe4* ft4 = ft ? reinterpret_cast<const Fe4*>(ft) + bx * n : nullptr;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        Fe v = from4(sh[i]);
-        if (ft4) v = zk::mont_mul(v, from4(ft4[i]));
-        zk::store_fe(yb + 8 * (i * out.e), v);
+    if (ft) {
+        const Fe4* ft4 = reinterpret_cast<const Fe4*>(ft);
+        for (int e = threadIdx.x; e < count * n; e += blockDim.x) {
+            const int t = e >> log2n, k = e & (n - 1);
+            const long long bx = tile.dim == 0 ? ix + t : ix;
+            const int p = at(t, k);
+            sh[p] = to4(zk::mont_mul(from4(sh[p]), from4(ft4[bx * n + k])));
+        }
+        __syncthreads();
+    }
+
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+        int t, i;
+        tile_index(c >> 2, tile.out_tmajor, log2n, tile.log2_count, t, i);
+        if (t >= count) continue;
+        const uint32_t w = words[4 * at(t, i) + (c & 3)];
+        longlong2 v;
+        v.x = (long long)(w & 0xFFFFu);
+        v.y = (long long)(w >> 16);
+        *reinterpret_cast<longlong2*>(yb + 8 * (t * out_t + i * out.e) + 2 * (c & 3)) = v;
     }
 }
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-static int launch(const void* x, void* y, const void* tw, const void* ft,
-                  int log2n, int gx, int gy, int gz, Strides in, Strides out,
-                  void* stream) {
+// gx, gy, gz: the transforms along each grid index; the block takes
+// 2^log2_count of them along dim with `threads` threads.
+static int launch(const void* x, void* y, const void* tw, const void* ft, int log2n,
+                  int gx, int gy, int gz, Strides in, Strides out, int dim, int log2_count,
+                  int threads, int in_tmajor, int out_tmajor, void* stream) {
     const int n = 1 << log2n;
-    const int smem = n * (int)sizeof(Fe4);
+    const int smem = ((n + 1) << log2_count) * (int)sizeof(Fe4);
     cudaError_t e = cudaFuncSetAttribute(
         ntt_stages_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    const int threads = n / 2 < 256 ? n / 2 : 256;
-    ntt_stages_kernel<<<dim3(gx, gy, gz), threads, smem, (cudaStream_t)stream>>>(
-        (const int64_t*)x, (int64_t*)y, (const uint32_t*)tw,
-        (const uint32_t*)ft, log2n, in, out);
+    int grid[3] = {gx, gy, gz};
+    const Tile tile{dim, log2_count, grid[dim], in_tmajor, out_tmajor};
+    grid[dim] = (grid[dim] + (1 << log2_count) - 1) >> log2_count;
+    ntt_stages_kernel<<<dim3(grid[0], grid[1], grid[2]), threads, smem, (cudaStream_t)stream>>>(
+        (const int64_t*)x, (int64_t*)y, (const uint32_t*)tw, (const uint32_t*)ft, log2n, in,
+        out, tile);
     return (int)cudaGetLastError();
 }
 
@@ -98,10 +165,11 @@ extern "C" int ntt_launch(const void* x, void* y, const void* tw, int log2n,
                           int gx, int gy, int gz, long long in_bx, long long in_by,
                           long long in_bz, long long in_e, long long out_bx,
                           long long out_by, long long out_bz, long long out_e,
-                          void* stream) {
+                          int dim, int log2_count, int threads, int in_tmajor,
+                          int out_tmajor, void* stream) {
     return launch(x, y, tw, nullptr, log2n, gx, gy, gz,
-                  Strides{in_bx, in_by, in_bz, in_e},
-                  Strides{out_bx, out_by, out_bz, out_e}, stream);
+                  Strides{in_bx, in_by, in_bz, in_e}, Strides{out_bx, out_by, out_bz, out_e},
+                  dim, log2_count, threads, in_tmajor, out_tmajor, stream);
 }
 
 // Fused-twiddle mode (the first pass of a four-step split, and the second
@@ -111,9 +179,10 @@ extern "C" int ntt_tw_launch(const void* x, void* y, const void* tw,
                              const void* ft, int log2n, int gx, int gy, int gz,
                              long long in_bx, long long in_by, long long in_bz,
                              long long in_e, long long out_bx, long long out_by,
-                             long long out_bz, long long out_e, void* stream) {
+                             long long out_bz, long long out_e, int dim, int log2_count,
+                             int threads, int in_tmajor, int out_tmajor, void* stream) {
     return launch(x, y, tw, ft, log2n, gx, gy, gz,
-                  Strides{in_bx, in_by, in_bz, in_e},
-                  Strides{out_bx, out_by, out_bz, out_e}, stream);
+                  Strides{in_bx, in_by, in_bz, in_e}, Strides{out_bx, out_by, out_bz, out_e},
+                  dim, log2_count, threads, in_tmajor, out_tmajor, stream);
 }
 #endif

@@ -55,7 +55,7 @@ extern "C" __global__ void ntt_variant_a(const int64_t* __restrict__ x,
     const int n = 1 << log2n;
     load_rows(sh, x + 8LL * blockIdx.x, n, c);
     __syncthreads();
-    stages_shared(sh, reinterpret_cast<const Fe4*>(tw), log2n, 0);
+    stages_shared(sh, reinterpret_cast<const Fe4*>(tw), log2n, 0, 1, FlatLayout{});
     store_rows(y + 8LL * blockIdx.x, sh, n, c);
 }
 
@@ -118,7 +118,7 @@ extern "C" __global__ void ntt_variant_c(const int64_t* __restrict__ x,
         for (int r = 0; r < 8; ++r) sh[8 * g + r] = to4(v[r]);
     }
     __syncthreads();
-    stages_shared(sh, tw4, log2n, 3);
+    stages_shared(sh, tw4, log2n, 3, 1, FlatLayout{});
     store_rows(y + 8LL * blockIdx.x, sh, n, c);
 }
 

@@ -5,31 +5,39 @@
 // XLA kernel that the JAX package tuned for the TPU (limb planes
 // [8, m*rows, 128], batches padded to 128 lanes), with its column twin
 // _permutation_kernel_cols (:101) that runs on XLA-CPU.  Both compute, per
-// round r: x^alpha, the MDS product, + c[2rm .. 2rm+m), x^alpha_inv (a
-// fixed-window chain), the MDS product, + c[2rm+m .. 2rm+2m).
+// round r: x^alpha, the MDS product, + c[2rm .. 2rm+m), x^alpha_inv, the
+// MDS product, + c[2rm+m .. 2rm+2m).
 //
-// Here one thread owns one state: its m = 2 registers stay in registers as
-// 4 words of 32 bits for all rounds, and device memory sees each state once
-// in and once out.  At block start the threads stage the MDS matrix and the
-// 2*N*m round constants (1.8 KB at N = 27) into shared memory, where every
-// thread reads the same address (a broadcast).  alpha and alpha_inv are
-// runtime arguments (128-bit words and a bit count): alpha by
-// square-and-multiply over its bits, alpha_inv by 4-bit windows read
-// straight from its words (a window never straddles a word), most
-// significant first.  The window table a^1..a^15 of both registers is
-// indexed by a runtime digit, so it lives in shared memory (a register
-// array indexed at runtime would go to local memory): [m][15][4 words]
-// [blockDim] words, the threads of a warp on neighbouring words, 480 B a
-// thread.  Exponents of at most 8 bits skip the table, as
-// limbs.mont_pow_windowed does.
+// Here m neighbouring threads own one state, one register each, in
+// registers as 4 words of 32 bits for all rounds; device memory sees each
+// state once in and once out.  A thread runs its register's S-boxes alone:
+// the product (field.cuh) is one block of carry-chained PTX, and the
+// compiler does not interleave two of them in one thread, so a thread
+// holding both registers ran their chains one after the other.  The MDS
+// product needs every register of the state: each thread writes its
+// register to shared memory, the block meets at a barrier, and each reads
+// its neighbours' (two buffers in turn, so a write never meets a read of
+// the exchange before).  At block start the threads stage the MDS matrix,
+// the 2*N*m round constants (1.8 KB at N = 27) and both exponent chains
+// into shared memory, where every thread reads the same address.
+//
+// Each S-box runs an exponent chain worked out on the host
+// (ops/rescue_ops.py exponent_chain) and passed as a kernel argument: a
+// short program of steps "acc <- (src) ; acc <- acc^(2^k) ; acc <- acc *
+// slot[j] ; slot[i] <- acc", the same for every thread, with slot 0 = x.
+// For the default instance's 128-bit alpha_inv it is a sliding window
+// over the digits {85, 135, 171}: 156 products (the 4-bit fixed window of
+// the plain version: 169), and 3 slots.  The slots are indexed at runtime,
+// so they live in shared memory, word-planar ([slot][word][blockDim]
+// words, the threads of a warp on neighbouring words): 64 B a thread, and
+// 32 B for the exchange (the fixed window's table took 480 B a state).
 //
 // Bound: operations.  A hash of the default instance is 27 rounds of
-// 2*2 (x^3) + 2*169 (x^alpha_inv) + 2*4 (MDS) = 9,450 dependent Montgomery
-// products for 64 bytes in and 64 out (int64 limbs of 2 registers).  Each
-// thread runs two independent product chains (the registers), so a warp
-// has little instruction-level parallelism of its own and the SM needs many
-// warps in flight: 64 threads a block and 32 KB of shared memory a block
-// (6 blocks, 12 warps an SM) at the default instance.
+// 2*2 (x^3) + 2*156 (x^alpha_inv) + 2*4 (MDS) = 8,748 Montgomery products
+// (field.cuh: 64 instructions each) and 216 modular additions for 64
+// bytes in and 64 out (int64 limbs of 2 registers).  At 256 or 2^14
+// states the batch does not fill the card and the time is one thread's
+// chain of products.
 
 #include <stdint.h>
 
@@ -37,31 +45,27 @@
 
 using zk::Fe;
 
-// the number of registers (the state width m) the kernel is built for
+// the number of registers (the state width m) the kernel is built for,
+// and so the threads a state
 constexpr int kM = 2;
-// window width of the inverse S-box and its table entries a^1..a^15
-constexpr int kWindow = 4;
-constexpr int kTable = (1 << kWindow) - 1;
-// exponents of at most this many bits go by square-and-multiply
-constexpr int kPowUnrollBits = 8;
+// slots of an exponent chain, and its most steps (ops/rescue_ops.py
+// KERNEL_SLOTS, KERNEL_MAX_STEPS)
+constexpr int kSlots = 4;
+constexpr int kMaxSteps = 96;
+// a step's fields: bits 0-7 squarings, 8-11 source slot, 12-15 multiplier
+// slot, 16-19 destination slot; kNone for none, kOne (source only) for the
+// Montgomery one
+constexpr uint32_t kNone = 0xF;
+constexpr uint32_t kOne = 0xE;
 
-// an exponent < 2^128: little-endian words and its bit length
-struct Exp {
-    uint32_t w[4];
-    int bits;
+// an exponent chain (ops/rescue_ops.py exponent_chain), passed by value and
+// staged into shared memory at block start
+struct Chain {
+    int len;
+    uint32_t step[kMaxSteps];
 };
 
 namespace {
-
-__device__ __forceinline__ uint32_t exp_bit(const Exp& e, int b) {
-    return (e.w[b >> 5] >> (b & 31)) & 1u;
-}
-
-// digit q (from the least significant) of 4 bits
-__device__ __forceinline__ uint32_t exp_digit(const Exp& e, int q) {
-    const int b = kWindow * q;
-    return (e.w[b >> 5] >> (b & 31)) & ((1u << kWindow) - 1u);
-}
 
 // R mod p = 2^128 - p: Montgomery one
 __device__ __forceinline__ Fe mont_one() {
@@ -71,65 +75,36 @@ __device__ __forceinline__ Fe mont_one() {
     return r;
 }
 
-// x^e, square-and-multiply, most significant bit first
-__device__ __forceinline__ Fe pow_sqm(const Fe& x, const Exp& e) {
-    if (e.bits == 0) return mont_one();
-    Fe acc = x;
-    for (int b = e.bits - 2; b >= 0; --b) {
-        acc = zk::mont_mul(acc, acc);
-        if (exp_bit(e, b)) acc = zk::mont_mul(acc, x);
-    }
-    return acc;
-}
-
-// word w of table entry a^(k+1) of register j, this thread's slot
-__device__ __forceinline__ uint32_t& tab_word(uint32_t* tab, int j, int k, int w) {
-    return tab[((j * kTable + k) * 4 + w) * blockDim.x + threadIdx.x];
-}
-
-__device__ __forceinline__ void tab_store(uint32_t* tab, int j, int k, const Fe& v) {
+// entry k (a slot, or an exchange buffer) of thread t in a word-planar table
+__device__ __forceinline__ void planar_store(uint32_t* tab, int k, int t, const Fe& v) {
 #pragma unroll
-    for (int w = 0; w < 4; ++w) tab_word(tab, j, k, w) = v.w[w];
+    for (int w = 0; w < 4; ++w) tab[(k * 4 + w) * blockDim.x + t] = v.w[w];
 }
 
-__device__ __forceinline__ Fe tab_load(uint32_t* tab, int j, int k) {
+__device__ __forceinline__ Fe planar_load(const uint32_t* tab, int k, int t) {
     Fe v;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) v.w[w] = tab_word(tab, j, k, w);
+    for (int w = 0; w < 4; ++w) v.w[w] = tab[(k * 4 + w) * blockDim.x + t];
     return v;
 }
 
-// s[j] <- s[j]^e for every register, by 4-bit windows (e.bits > 8)
-__device__ __forceinline__ void pow_window(Fe s[kM], const Exp& e, uint32_t* tab) {
-    Fe t[kM];
-#pragma unroll
-    for (int j = 0; j < kM; ++j) {
-        t[j] = s[j];
-        tab_store(tab, j, 0, t[j]);
-    }
-    for (int k = 1; k < kTable; ++k) {
-#pragma unroll
-        for (int j = 0; j < kM; ++j) {
-            t[j] = zk::mont_mul(t[j], s[j]);
-            tab_store(tab, j, k, t[j]);
+// s <- s^e, e given by its chain's steps; the slots are this thread's
+__device__ __forceinline__ Fe pow_chain(Fe s, const uint32_t* steps, int len, uint32_t* tab) {
+    const int me = threadIdx.x;
+    planar_store(tab, 0, me, s);
+    for (int i = 0; i < len; ++i) {
+        const uint32_t st = steps[i];
+        const uint32_t src = (st >> 8) & 0xFu, mul = (st >> 12) & 0xFu, dst = (st >> 16) & 0xFu;
+        if (src == kOne) {
+            s = mont_one();
+        } else if (src != kNone) {
+            s = planar_load(tab, (int)src, me);
         }
+        for (uint32_t q = st & 0xFFu; q > 0; --q) s = zk::mont_mul(s, s);
+        if (mul != kNone) s = zk::mont_mul(s, planar_load(tab, (int)mul, me));
+        if (dst != kNone) planar_store(tab, (int)dst, me, s);
     }
-    const int ndig = (e.bits + kWindow - 1) / kWindow;
-    const uint32_t d0 = exp_digit(e, ndig - 1);  // nonzero: the top bit is set
-#pragma unroll
-    for (int j = 0; j < kM; ++j) s[j] = tab_load(tab, j, (int)d0 - 1);
-    for (int q = ndig - 2; q >= 0; --q) {
-#pragma unroll
-        for (int sq = 0; sq < kWindow; ++sq) {
-#pragma unroll
-            for (int j = 0; j < kM; ++j) s[j] = zk::mont_mul(s[j], s[j]);
-        }
-        const uint32_t d = exp_digit(e, q);
-        if (d) {
-#pragma unroll
-            for (int j = 0; j < kM; ++j) s[j] = zk::mont_mul(s[j], tab_load(tab, j, (int)d - 1));
-        }
-    }
+    return s;
 }
 
 __device__ __forceinline__ Fe const_fe(const uint32_t* consts, int c) {
@@ -139,98 +114,100 @@ __device__ __forceinline__ Fe const_fe(const uint32_t* consts, int c) {
     return v;
 }
 
-// s <- MDS s; the matrix is constants 0 .. m*m (row-major)
-__device__ __forceinline__ void mds_mul(Fe s[kM], const uint32_t* consts) {
-    Fe out[kM];
+// register j of MDS s, the state's registers exchanged through buffer
+// `buf` of `xch` (a barrier between the write and the reads); the matrix
+// is constants 0 .. m*m (row-major)
+__device__ __forceinline__ Fe mds_row(const Fe& s, int j, const uint32_t* consts,
+                                      uint32_t* xch, int buf) {
+    planar_store(xch, buf, threadIdx.x, s);
+    __syncthreads();
+    const int first = threadIdx.x - j;  // the thread of the state's register 0
+    Fe out = zk::mont_mul(const_fe(consts, j * kM), planar_load(xch, buf, first));
 #pragma unroll
-    for (int j = 0; j < kM; ++j) {
-        out[j] = zk::mont_mul(const_fe(consts, j * kM), s[0]);
-#pragma unroll
-        for (int i = 1; i < kM; ++i) {
-            out[j] = zk::add_mod(out[j], zk::mont_mul(const_fe(consts, j * kM + i), s[i]));
-        }
+    for (int i = 1; i < kM; ++i) {
+        out = zk::add_mod(out, zk::mont_mul(const_fe(consts, j * kM + i),
+                                            planar_load(xch, buf, first + i)));
     }
-#pragma unroll
-    for (int j = 0; j < kM; ++j) s[j] = out[j];
-}
-
-// s[j] += round constant c0 + j
-__device__ __forceinline__ void add_constants(Fe s[kM], const uint32_t* consts, int c0) {
-#pragma unroll
-    for (int j = 0; j < kM; ++j) s[j] = zk::add_mod(s[j], const_fe(consts, kM * kM + c0 + j));
+    return out;
 }
 
 }  // namespace
 
 // state, out: [n_states, m, 8] int64 limbs (Montgomery); mds: [m, m, 8];
-// rc: [2 * n_rounds * m, 8] (at least).  Dynamic shared memory:
-// 4 * (m*m + 2*n_rounds*m) + m * 15 * 4 * blockDim.x words.
+// rc: [2 * n_rounds * m, 8] (at least).  Thread t holds register t % m of
+// state t / m; blockDim.x is a multiple of m.  Threads past the last state
+// compute on the last state's registers and store nothing (every thread
+// meets every barrier).  Dynamic shared memory: 4 * (m*m + 2*n_rounds*m)
+// + 2 * kMaxSteps + (kSlots + 2) * 4 * blockDim.x words: the constants,
+// both chains' steps, the slots and the exchange buffers.
 extern "C" __global__ void rescue_kernel(
     const int64_t* __restrict__ state, int64_t* __restrict__ out,
     const int64_t* __restrict__ mds, const int64_t* __restrict__ rc,
-    int n_states, int n_rounds, Exp alpha, Exp alpha_inv) {
+    int n_states, int n_rounds, Chain alpha, Chain alpha_inv) {
     extern __shared__ uint32_t rescue_smem[];
     const int n_consts = kM * kM + 2 * n_rounds * kM;
     uint32_t* consts = rescue_smem;
-    uint32_t* tab = rescue_smem + 4 * n_consts;
+    uint32_t* steps_a = rescue_smem + 4 * n_consts;
+    uint32_t* steps_ai = steps_a + kMaxSteps;
+    uint32_t* tab = steps_ai + kMaxSteps;
+    uint32_t* xch = tab + kSlots * 4 * blockDim.x;
     for (int c = threadIdx.x; c < n_consts; c += blockDim.x) {
         const Fe v = zk::load_fe(c < kM * kM ? mds + 8 * c : rc + 8 * (c - kM * kM));
 #pragma unroll
         for (int w = 0; w < 4; ++w) consts[4 * c + w] = v.w[w];
     }
+    for (int i = threadIdx.x; i < alpha.len; i += blockDim.x) steps_a[i] = alpha.step[i];
+    for (int i = threadIdx.x; i < alpha_inv.len; i += blockDim.x) steps_ai[i] = alpha_inv.step[i];
     __syncthreads();
 
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n_states) return;
-    Fe s[kM];
-#pragma unroll
-    for (int j = 0; j < kM; ++j) s[j] = zk::load_fe(state + 8 * ((size_t)i * kM + j));
-
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const int j = (int)(t % kM);
+    const long long i = t / kM < n_states ? t / kM : n_states - 1;
+    Fe s = zk::load_fe(state + 8 * (i * kM + j));
+    int buf = 0;
     for (int r = 0; r < n_rounds; ++r) {
-#pragma unroll
-        for (int j = 0; j < kM; ++j) s[j] = pow_sqm(s[j], alpha);
-        mds_mul(s, consts);
-        add_constants(s, consts, 2 * r * kM);
-        if (alpha_inv.bits > kPowUnrollBits) {
-            pow_window(s, alpha_inv, tab);
-        } else {
-#pragma unroll
-            for (int j = 0; j < kM; ++j) s[j] = pow_sqm(s[j], alpha_inv);
-        }
-        mds_mul(s, consts);
-        add_constants(s, consts, 2 * r * kM + kM);
+        s = pow_chain(s, steps_a, alpha.len, tab);
+        s = mds_row(s, j, consts, xch, buf);
+        s = zk::add_mod(s, const_fe(consts, kM * kM + 2 * r * kM + j));
+        buf ^= 1;
+        s = pow_chain(s, steps_ai, alpha_inv.len, tab);
+        s = mds_row(s, j, consts, xch, buf);
+        s = zk::add_mod(s, const_fe(consts, kM * kM + 2 * r * kM + kM + j));
+        buf ^= 1;
     }
-#pragma unroll
-    for (int j = 0; j < kM; ++j) zk::store_fe(out + 8 * ((size_t)i * kM + j), s[j]);
+    if (t / kM < n_states) zk::store_fe(out + 8 * (i * kM + j), s);
 }
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
-static Exp make_exp(const uint32_t* words, int bits) {
-    Exp e;
-    for (int k = 0; k < 4; ++k) e.w[k] = words[k];
-    e.bits = bits;
-    return e;
+static Chain make_chain(const uint32_t* steps, int len) {
+    Chain c;
+    c.len = len;
+    for (int k = 0; k < len; ++k) c.step[k] = steps[k];
+    return c;
 }
 
 // m must be kM (the wrapper raises otherwise); alpha, alpha_inv: host
-// arrays of 4 little-endian words.  Returns cudaGetLastError().
+// arrays of chain steps (at most kMaxSteps each); threads a block, a
+// multiple of kM (the wrapper's launch_plan).  Returns cudaGetLastError().
 extern "C" int rescue_launch(const void* state, void* out, const void* mds,
                              const void* rc, int n_states, int m, int n_rounds,
-                             const uint32_t* alpha, int alpha_bits,
-                             const uint32_t* alpha_inv, int alpha_inv_bits,
+                             const uint32_t* alpha, int alpha_len,
+                             const uint32_t* alpha_inv, int alpha_inv_len, int threads,
                              void* stream) {
-    if (m != kM) return (int)cudaErrorInvalidValue;
-    const int threads = 64;
-    const int smem = 4 * (int)sizeof(uint32_t) * (kM * kM + 2 * n_rounds * kM) +
-                     kM * kTable * 4 * (int)sizeof(uint32_t) * threads;
+    if (m != kM || threads % kM || alpha_len > kMaxSteps || alpha_inv_len > kMaxSteps) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const int smem = (4 * (kM * kM + 2 * n_rounds * kM) + 2 * kMaxSteps) * (int)sizeof(uint32_t) +
+                     (kSlots + 2) * 4 * (int)sizeof(uint32_t) * threads;
     cudaError_t e = cudaFuncSetAttribute(
         rescue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    rescue_kernel<<<(n_states + threads - 1) / threads, threads, smem, (cudaStream_t)stream>>>(
+    const long long total = (long long)n_states * kM;
+    rescue_kernel<<<(int)((total + threads - 1) / threads), threads, smem, (cudaStream_t)stream>>>(
         (const int64_t*)state, (int64_t*)out, (const int64_t*)mds, (const int64_t*)rc,
-        n_states, n_rounds, make_exp(alpha, alpha_bits), make_exp(alpha_inv, alpha_inv_bits));
+        n_states, n_rounds, make_chain(alpha, alpha_len), make_chain(alpha_inv, alpha_inv_len));
     return (int)cudaGetLastError();
 }
 #endif

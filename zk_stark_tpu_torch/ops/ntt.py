@@ -6,9 +6,10 @@ Counterpart of the JAX package's ``ops/ntt.py`` and of the Pallas glue
 ``len < 2`` pass-through semantics.  The transform runs along axis 0 of
 ``[n, *batch, 8]`` Montgomery tensors.
 
-Up to :data:`MAX_KERNEL_N` points a transform is one block of the
+Up to :data:`MAX_KERNEL_N` points a transform is held by one block of the
 hand-written kernel of ``csrc/ntt.cu`` (all stages in shared memory; the
-counterpart of the TPU's ``_ntt_stages_kernel``).  Above that, up to
+counterpart of the TPU's ``_ntt_stages_kernel``), with its neighbours in
+memory (:func:`block_shape`).  Above that, up to
 ``MAX_KERNEL_N ** 2`` (2^24), the four-step split ``n = r * c`` runs it
 twice: the c columns of length r with root w^c, each multiplied by
 w^(k1 * i2) in the kernel's fused-twiddle mode before its store, then the
@@ -42,8 +43,15 @@ from . import limbs as L
 MAX_KERNEL_N = 1 << 12
 #: most blocks along the grid's y and z dimensions
 MAX_GRID_YZ = 65535
+#: elements a block of the kernel holds at most with several transforms
+#: (32 KB of shared memory at 16 bytes an element; the other tiles and
+#: widths of tools/kernel_shape_probe.py are no faster on the H100, PERF.md)
+TILE_ELEMS = 1 << 11
+#: threads of a block, and of the only block of a launch; the threads a
+#: block should reach where the transforms allow
+BLOCK_THREADS, LONE_BLOCK_THREADS, MIN_THREADS = 512, 1024, 256
 
-_ARGS = [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 NTT_KERNEL = _build.Kernel(
     "ntt",
     "ntt_launch",
@@ -249,6 +257,46 @@ def kernel_passes(n: int, batch: int, root_int: int) -> list[Pass]:
     ]
 
 
+class Block(NamedTuple):
+    """How ``csrc/ntt.cu`` runs a pass: each block holds ``2 ** log2_count``
+    transforms that are neighbours along grid index ``dim`` (0, 1, 2 for
+    x, y, z; the last block masked) with ``threads`` threads, and walks its
+    input and its output transform-major (``in_tmajor``, ``out_tmajor``:
+    the tile index has stride 1 there) or element-major."""
+
+    dim: int
+    log2_count: int
+    threads: int
+    in_tmajor: bool
+    out_tmajor: bool
+
+
+def block_shape(p: Pass) -> Block:
+    """The block of a pass.  A block takes up to TILE_ELEMS / m
+    neighbouring transforms along one grid index: first one that fills a
+    block of 256 threads, then one whose stride is 1 on the sides (input,
+    output) where the transforms' own elements are not contiguous, so that
+    a warp's 16-byte chunks form runs of several elements, then the one of
+    smaller stride.
+    Only how the kernel runs depends on it, not what it computes: the
+    CPU's plain passes ignore it."""
+    need = (p.ins[3] != 1, p.outs[3] != 1)
+
+    def count(d):
+        return min(max(1, TILE_ELEMS // p.m), next_pow2(p.grid[d]))
+
+    def key(d):
+        serves = sum(nd and s[d] == 1 for nd, s in zip(need, (p.ins, p.outs)))
+        return min(count(d) * p.m, 2 * MIN_THREADS), serves, -min(p.ins[d], p.outs[d])
+
+    dim = max((d for d in range(3) if p.grid[d] > 1), key=key, default=0)
+    c = count(dim)
+    blocks = -(-p.grid[dim] // c) * p.grid[0] * p.grid[1] * p.grid[2] // p.grid[dim]
+    threads = min(c * p.m // 2, LONE_BLOCK_THREADS if blocks == 1 else BLOCK_THREADS)
+    return Block(dim, c.bit_length() - 1, threads, need[0] and p.ins[dim] == 1,
+                 need[1] and p.outs[dim] == 1)
+
+
 def pass_tables(p: Pass, device: str) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The kernel's stage twiddles and fused-twiddle table (or None) of a pass."""
     ft = None if p.four_step is None else _four_step_twiddles_u32(*p.four_step, device)
@@ -260,8 +308,9 @@ def _launch_pass(src: torch.Tensor, dst: torch.Tensor, p: Pass) -> None:
     ptrs = [src.data_ptr(), dst.data_ptr(), tw.data_ptr()]
     if ft is not None:
         ptrs.append(ft.data_ptr())
-    p.kernel(*ptrs, p.m.bit_length() - 1, *p.grid, *p.ins, *p.outs,
-             _build.stream_ptr(src.device))
+    blk = block_shape(p)
+    p.kernel(*ptrs, p.m.bit_length() - 1, *p.grid, *p.ins, *p.outs, blk.dim, blk.log2_count,
+             blk.threads, int(blk.in_tmajor), int(blk.out_tmajor), _build.stream_ptr(src.device))
 
 
 def _plain_pass(src: torch.Tensor, dst: torch.Tensor, p: Pass) -> None:

@@ -6,42 +6,164 @@ x^alpha -> MDS -> + first constants -> x^alpha_inv -> MDS -> + second
 constants, the bulk (Merkle-leaf) hashing path of ``RescuePrime``.
 
 On a CUDA tensor :func:`permutation_batch` launches ``csrc/rescue.cu`` (one
-thread per state, every round in one launch, built for m = 2); on a CPU
-tensor it runs :func:`permutation_plain`, the tensor-code counterpart of
-the JAX package's column kernel.  The TPU's limb-plane layout, its pad to
-128 lanes and the switch between the two JAX kernels have no counterpart:
-they exist for the TPU's vector tiles.
+thread per register of a state, every round in one launch, built for
+m = 2; each S-box runs the exponent chain of :func:`exponent_chain`); on a
+CPU tensor it runs :func:`permutation_plain`, the tensor-code counterpart
+of the JAX package's column kernel.  The TPU's limb-plane layout, its pad
+to 128 lanes and the switch between the two JAX kernels have no
+counterpart: they exist for the TPU's vector tiles.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from . import limbs as L
 
-#: an exponent as 4 little-endian words of 32 bits (host memory)
-_WORDS = ctypes.c_uint32 * 4
-_WORDS_PTR = ctypes.POINTER(ctypes.c_uint32)
+_STEPS_PTR = ctypes.POINTER(ctypes.c_uint32)
 
 RESCUE_KERNEL = _build.Kernel(
     "rescue",
     "rescue_launch",
     [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 3
-    + [_WORDS_PTR, ctypes.c_int, _WORDS_PTR, ctypes.c_int, ctypes.c_void_p],
+    + [_STEPS_PTR, ctypes.c_int, _STEPS_PTR, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     replaces="zk_stark_tpu/ops/rescue_ops.py:163 (_permutation_kernel)",
 )
 #: the state width the kernel is built for (``kM`` in ``csrc/rescue.cu``)
 KERNEL_M = 2
+#: threads of a block
+KERNEL_THREADS = 128
+#: slots and most steps of an exponent chain (``kSlots``, ``kMaxSteps``)
+KERNEL_SLOTS = 4
+KERNEL_MAX_STEPS = 96
+#: a step's "no slot", and its source "the Montgomery one" (``kNone``, ``kOne``)
+NONE, ONE = 0xF, 0xE
+#: widest sliding window :func:`exponent_chain` tries
+_MAX_WINDOW = 16
+
+
+def chain_step(squarings: int = 0, src: int = NONE, mul: int = NONE, dst: int = NONE) -> int:
+    """One step of an exponent chain as the kernel reads it: acc <- slot
+    ``src`` (or one; kept if NONE), then ``squarings`` squarings, then
+    acc <- acc * slot ``mul``, then slot ``dst`` <- acc."""
+    if not 0 <= squarings < 256:
+        raise ValueError(f"chain_step: {squarings} squarings")
+    return squarings | src << 8 | mul << 12 | dst << 16
+
+
+def _fields(step: int) -> tuple[int, int, int, int]:
+    return step & 0xFF, (step >> 8) & 0xF, (step >> 12) & 0xF, (step >> 16) & 0xF
+
+
+def chain_products(steps) -> int:
+    """Montgomery products an exponent chain spends: its squarings and its
+    multiplications."""
+    return sum(_fields(s)[0] + (_fields(s)[2] != NONE) for s in steps)
+
+
+def _continue(steps: list, base_slot: int, bits: str, dst: int) -> None:
+    """Append the steps that take acc <- slot ``base_slot`` on to the value
+    whose binary form is the base's followed by ``bits`` (left-to-right
+    binary, multiplying by x = slot 0), then store it in ``dst``."""
+    runs = bits.split("1")  # zeros before each 1, then the trailing zeros
+    src = base_slot
+    for zeros in runs[:-1]:
+        steps.append(chain_step(len(zeros) + 1, src=src, mul=0))
+        src = NONE
+    if runs[-1] or src != NONE:
+        steps.append(chain_step(len(runs[-1]), src=src))
+    steps[-1] = steps[-1] & ~(0xF << 16) | dst << 16
+
+
+def _window_chain(e: int, w: int) -> list[int] | None:
+    """The chain of a sliding window of at most ``w`` bits over e > 0, or
+    None if its digits need more slots than the kernel has.  Every digit
+    used after the first is built once into a slot (left-to-right binary
+    from x, or from a smaller digit whose binary form begins its own); the
+    first digit is built straight into acc."""
+    bits = bin(e)[2:]
+    windows, i, zeros = [], 0, 0  # (zeros before, digit bits)
+    while i < len(bits):
+        if bits[i] == "0":
+            zeros, i = zeros + 1, i + 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        windows.append((zeros, bits[i:j]))
+        zeros, i = 0, j
+    table = sorted({d for _, d in windows[1:] if d != "1"}, key=lambda d: (len(d), d))
+    if len(table) > KERNEL_SLOTS - 1:
+        return None
+    slot = {"1": 0}
+    steps: list[int] = []
+
+    def build(d: str, dst: int) -> None:
+        base = max((b for b in slot if d.startswith(b) and b != d), key=len)
+        _continue(steps, slot[base], d[len(base):], dst)
+
+    for k, d in enumerate(table, start=1):
+        build(d, k)
+        slot[d] = k
+    first = windows[0][1]
+    if first in slot:
+        steps.append(chain_step(src=slot[first]))
+    else:
+        build(first, NONE)
+    for z, d in windows[1:]:
+        steps.append(chain_step(z + len(d), mul=slot[d]))
+    if zeros:
+        steps.append(chain_step(zeros))
+    return steps
+
+
+@functools.lru_cache(maxsize=None)
+def exponent_chain(e: int) -> tuple[int, ...]:
+    """The steps by which ``csrc/rescue.cu`` raises x to e (0 <= e < 2^128):
+    the sliding-window chain of fewest products over window widths 1 to
+    16 whose digits fit the kernel's slots (width 1, square-and-multiply,
+    always does).  For the Rescue inverse S-box's 128-bit alpha_inv it is
+    156 products (digits 135, then 85 and 171), against the fixed 4-bit
+    window's 169."""
+    if not 0 <= e < 1 << 128:
+        raise ValueError(f"exponent {e} is not in [0, 2^128)")
+    if e == 0:
+        return (chain_step(src=ONE),)
+    chains = [c for w in range(1, _MAX_WINDOW + 1)
+              if (c := _window_chain(e, w)) is not None and len(c) <= KERNEL_MAX_STEPS]
+    return tuple(min(chains, key=chain_products))
+
+
+def chain_pow(x: torch.Tensor, steps) -> torch.Tensor:
+    """x^e for Montgomery x [..., 8], e given by its chain: the kernel's
+    steps as tensor code."""
+    slots = {0: x}
+    acc = x
+    for step in steps:
+        squarings, src, mul, dst = _fields(step)
+        if src == ONE:
+            acc = L.one_mont(x.device).expand(x.shape)
+        elif src != NONE:
+            acc = slots[src]
+        for _ in range(squarings):
+            acc = L.mont_mul(acc, acc)
+        if mul != NONE:
+            acc = L.mont_mul(acc, slots[mul])
+        if dst != NONE:
+            slots[dst] = acc
+    return acc
 
 
 def products_per_permutation(m: int, n_rounds: int, alpha: int, alpha_inv: int) -> int:
-    """Montgomery products of one permutation, as both versions compute it:
-    per round and register the two S-boxes, and two m x m MDS products."""
-    sboxes = L.pow_products(alpha) + L.pow_products(alpha_inv, windowed=True)
+    """Montgomery products of one permutation as the kernel computes it:
+    per round and register the two S-boxes' chains, and two m x m MDS
+    products."""
+    sboxes = chain_products(exponent_chain(alpha)) + chain_products(exponent_chain(alpha_inv))
     return n_rounds * (m * sboxes + 2 * m * m)
 
 
@@ -81,10 +203,18 @@ def permutation_plain(state, mds, round_constants, n_rounds: int, alpha: int, al
     return s
 
 
-def _exponent(e: int, name: str):
-    if not 0 <= e < 1 << 128:
-        raise ValueError(f"{name} = {e} is not in [0, 2^128)")
-    return _WORDS(*((e >> (32 * k)) & 0xFFFFFFFF for k in range(4))), e.bit_length()
+def _steps(e: int):
+    """The host array of e's chain and its length, for the launch."""
+    steps = exponent_chain(e)
+    return (ctypes.c_uint32 * len(steps))(*steps), len(steps)
+
+
+def launch_plan(n_states: int) -> dict:
+    """The blocks and threads a block :func:`permutation_kernel` launches
+    for ``n_states``: m = KERNEL_M threads a state (one register each),
+    KERNEL_THREADS a block whatever the batch (``tools/kernel_shape_probe.py``
+    times other widths; PERF.md)."""
+    return {"blocks": -(-n_states * KERNEL_M // KERNEL_THREADS), "threads": KERNEL_THREADS}
 
 
 def permutation_kernel(state, mds, round_constants, n_rounds: int, alpha: int, alpha_inv: int):
@@ -96,13 +226,13 @@ def permutation_kernel(state, mds, round_constants, n_rounds: int, alpha: int, a
     _build.check_cuda_tensor(mds, "rescue mds", L.DTYPE)
     _build.check_cuda_tensor(round_constants, "rescue round_constants", L.DTYPE)
     _check_constants(state, mds, round_constants, n_rounds)
-    a_words, a_bits = _exponent(alpha, "alpha")
-    ai_words, ai_bits = _exponent(alpha_inv, "alpha_inv")
+    a_steps, a_len = _steps(alpha)
+    ai_steps, ai_len = _steps(alpha_inv)
     out = torch.empty_like(state)
     if b:
         RESCUE_KERNEL(
             state.data_ptr(), out.data_ptr(), mds.data_ptr(), round_constants.data_ptr(),
-            b, m, n_rounds, a_words, a_bits, ai_words, ai_bits,
+            b, m, n_rounds, a_steps, a_len, ai_steps, ai_len, launch_plan(b)["threads"],
             _build.stream_ptr(state.device),
         )
     return out

@@ -8,12 +8,13 @@ that reads the card needs one.
 
 from __future__ import annotations
 
+import re
 import statistics
 import subprocess
 
 import torch
 
-from ..ops import limbs as L
+from ..ops import _build
 from ..ops import ntt as N
 
 #: HBM bytes/s of one H100 SXM (published datasheet)
@@ -27,29 +28,23 @@ ISSUE_LANES_PER_SM = 128
 
 
 def mont_mul_ops() -> int:
-    """32-bit integer instructions one Montgomery product needs, counted
-    from csrc/field.cuh's CIOS with p's words (1, 0, 0, 0xCB800000).
-
-    A multiply-add gives one half of a wide product and folds the
-    accumulation and its carry in (PTX mad.lo.cc / madc.hi.cc); an add
-    with carry, a subtract with borrow or a select is one instruction.
-    Per word b[i] of the multiplier: the row a * b[i] is 4 low and 4 high
-    halves and the carries into t[4] and t[5] (10); the reduction is
-    m = -t[0] (1), one instruction for each word of p that is 0 or 1 (a
-    carry, an add), two for each other word (its two halves), and the carry
-    into t[4] (1).  Then the conditional subtraction of p: 4 subtracts with
-    borrow, 3 for the flag, 4 selects.  The same count for every kernel's
-    bound; the compiled code's count is a separate diagnostic
+    """32-bit integer instructions of one Montgomery product as
+    csrc/field.cuh writes it: the PTX instructions of ``mont_mul``'s asm
+    block, counted from the source (64: 35 for the 4x4-word schoolbook
+    product as multiply-add carry chains, 19 for the reduction through p's
+    shape, 10 for the conditional subtraction of p).  A multiply-add with
+    carry, an add with carry, a subtract with borrow, a compare and a select
+    is one instruction each.  The same count for every kernel's bound; the
+    compiled code's count is a separate diagnostic
     (``chip_smoke.sass_ops_per_product``).
     """
-    words = [(L.P >> (32 * k)) & 0xFFFFFFFF for k in range(4)]
-    row = 2 * 4 + 2
-    reduction = 1 + sum(1 if w in (0, 1) else 2 for w in words) + 1
-    return 4 * (row + reduction) + 4 + 3 + 4
+    src = (_build.CSRC / "field.cuh").read_text()
+    block = src[src.index("// mont_mul PTX begin"):src.index("// mont_mul PTX end")]
+    return len(re.findall(r'"[a-z][a-z0-9.]* [^"]*;\\n\\t"', block))
 
 
 #: 32-bit integer instructions per field operation on 4 words of 32 bits
-#: (product: 79, see mont_mul_ops; add/sub: 4 add-with-carry, 4 subtract,
+#: (product: 64, see mont_mul_ops; add/sub: 4 add-with-carry, 4 subtract,
 #: 4 selects and flags)
 MONT_MUL_OPS = mont_mul_ops()
 ADD_SUB_OPS = 16
