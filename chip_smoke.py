@@ -2,14 +2,26 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-Phases (any failure raises and exits non-zero; nothing is caught):
+Phases (any failure raises and exits non-zero; nothing is caught).  Every
+limb call of the paths below runs csrc/limbs.cu; every plain version runs
+its own tensor code, and the limb kernels' counts must not move while one
+runs (run_plain):
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels of zk_stark_tpu_torch/csrc in parallel (with
    each kernel's registers and spills from ptxas);
-2b. the kernels' Montgomery product (csrc/field.cuh) on the card against
-   Python integers: every pair of {0, 1, p-1, p-2} and seeded random
-   pairs;
+2b. the kernels' Montgomery product (csrc/field.cuh, through
+   csrc/limbs.cu) on the card against Python integers: every pair of
+   {0, 1, p-1, p-2} and seeded random pairs;
+2c. the limb arithmetic (csrc/limbs.cu: Montgomery product, modular add,
+   subtraction, REDC) at 4096, 2^20 and 2^25 elements, in six operand
+   layouts (full, against one element, [r, 1] x [1, c], strided slices,
+   four unmergeable dimensions, limbs stored transposed: the one copy),
+   every pair of {0, 1, p-1, p-2, R mod p} leading the inputs, bit for
+   bit against the plain versions; times beside the bytes bound, the plain
+   version's at 2^25, the host time of a call against the tensor code's,
+   and one profiled call of each op (one launch of its kernel, nothing
+   else);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with both times (CUDA events, median): at the signature's shapes, then
    at the chain's (the four-step NTT, fused-twiddle mode, at 2^18 and 2^20
@@ -150,6 +162,16 @@ NON_ARITH = {"LDG", "STG", "LD", "ST", "LDS", "STS", "LDL", "STL", "LDC", "ULDC"
              "BRA", "EXIT", "BAR", "NOP", "RET", "CALL", "BSSY", "BSYNC",
              "WARPSYNC", "JMP", "S2R", "S2UR", "CS2R"}
 
+#: the limb phase: element counts (a small call, the chain's codeword, the
+#: long transforms' size), the operand layouts of limb_operands (REDC, unary,
+#: takes those of one operand), and the values of which every pair is held
+LIMB_SIZES = (1 << 12, 1 << 20, 1 << 25)
+LIMB_LAYOUTS = ("full", "scalar", "outer", "slice", "permuted", "transposed")
+UNARY_LAYOUTS = ("full", "slice", "permuted", "transposed")
+LIMB_EDGES = (0, 1, L.P - 1, L.P - 2, L.R_INT)
+#: unsynchronised calls timed on the host clock for the host cost of a call
+HOST_CALLS = 1000
+
 
 def require(cond, message: str) -> None:
     """A check of a phase; raises (unlike assert, it survives python -O)."""
@@ -168,6 +190,39 @@ def random_mont(n: int, gen: torch.Generator, dev) -> torch.Tensor:
     limbs = torch.randint(0, 1 << 16, (n, L.NLIMB), dtype=L.DTYPE, generator=gen)
     limbs[:, -1] %= L.P_LIMBS[-1]
     return limbs.to(dev)
+
+
+def edge_pairs() -> tuple[list[int], list[int]]:
+    """Every ordered pair of LIMB_EDGES: (first operands, second operands)."""
+    return ([x for x in LIMB_EDGES for _ in LIMB_EDGES],
+            [y for _ in LIMB_EDGES for y in LIMB_EDGES])
+
+
+def limb_operands(layout: str, a: torch.Tensor, b: torch.Tensor, rows: int):
+    """The operands of a limb call in ``layout``, from a and b [n, 8]:
+    "full" a against b; "scalar" a against the single element b[2];
+    "outer" a[:rows] as [rows, 1, 8] against b[:n / rows] as [1, n / rows, 8];
+    "slice" the even against the odd rows of a and b interleaved;
+    "permuted" a and b as [2, 2, 2, n / 8] with their first three
+    dimensions permuted apart (four dimensions that do not merge); and
+    "transposed" a with its limbs stored transposed (limb stride n, which
+    the kernel wrapper copies) against b.  A unary call takes the first."""
+    n = a.shape[0]
+    if layout == "full":
+        return a, b
+    if layout == "scalar":
+        return a, b[2]
+    if layout == "outer":
+        return a[:rows].unsqueeze(1), b[: n // rows].unsqueeze(0)
+    if layout == "slice":
+        s = torch.stack([a, b], dim=1).reshape(2 * n, L.NLIMB)
+        return s[0::2], s[1::2]
+    if layout == "permuted":
+        cube = (2, 2, 2, n // 8, L.NLIMB)
+        return a.reshape(cube).permute(2, 1, 0, 3, 4), b.reshape(cube).permute(1, 0, 2, 3, 4)
+    if layout == "transposed":
+        return a.t().contiguous().t(), b
+    raise ValueError(f"unknown layout {layout}")
 
 
 def fold_bound(n: int, int_rate: float) -> tuple[float, str]:
@@ -215,13 +270,15 @@ def compare_kernels(dev, int_rate: float) -> dict:
         root = F.primitive_nth_root(n).value
         inv_root = pow(root, -1, L.P)
         four_step = n > N.MAX_KERNEL_N
-        err = check(f"ntt n={n}", N.ntt_kernel(x, root), N.ntt_plain(x, root))
-        err += check(f"intt n={n}", N.ntt_kernel(x, inv_root), N.ntt_plain(x, inv_root))
+        err = check(f"ntt n={n}", N.ntt_kernel(x, root), run_plain(N.ntt_plain, x, root))
+        err += check(f"intt n={n}", N.ntt_kernel(x, inv_root),
+                     run_plain(N.ntt_plain, x, inv_root))
         if four_step:
-            err += check(f"four-step plain n={n}", N.ntt_passes_plain(x, root),
-                         N.ntt_plain(x, root))
+            err += check(f"four-step plain n={n}", run_plain(N.ntt_passes_plain, x, root),
+                         run_plain(N.ntt_plain, x, root))
         k_ms = time_ms(lambda: N.ntt_kernel(x, root))
-        p_ms = time_ms(lambda: N.ntt_plain(x, root), reps=2 if four_step else 3, runs=3)
+        p_ms = time_ms(lambda: run_plain(N.ntt_plain, x, root), reps=2 if four_step else 3,
+                       runs=3)
         name, kernel = ("ntt_four_step", N.NTT_TW_KERNEL) if four_step else ("ntt", N.NTT_KERNEL)
         record(name, kernel, f"n={n}", err, k_ms, p_ms, ntt_bound(n, int_rate))
         print(f"ntt n={n} plan: {plan_text(n, 1)}", flush=True)
@@ -233,10 +290,10 @@ def compare_kernels(dev, int_rate: float) -> dict:
         ao = L.int_to_mont(987654321987654321 % L.P, dev)
         ti = L.int_to_mont(pow(2, -1, L.P), dev)
         kf, kc = FO.fold_kernel(cw, invpows, ao, ti)
-        pf, pc = FO.fold_plain(cw, invpows, ao, ti)
+        pf, pc = run_plain(FO.fold_plain, cw, invpows, ao, ti)
         err = max(check(f"fold n={n} folded", kf, pf), check(f"fold n={n} canon", kc, pc))
         k_ms = time_ms(lambda: FO.fold_kernel(cw, invpows, ao, ti))
-        p_ms = time_ms(lambda: FO.fold_plain(cw, invpows, ao, ti), reps=5, runs=3)
+        p_ms = time_ms(lambda: run_plain(FO.fold_plain, cw, invpows, ao, ti), reps=5, runs=3)
         record("fold", FO.FOLD_KERNEL, f"n={n}", err, k_ms, p_ms, fold_bound(n, int_rate))
 
         canon = L.from_mont(cw)
@@ -301,12 +358,14 @@ def main_path(dev, kernels) -> tuple[dict, tuple]:
 
     for k in kernels:
         k.launches = 0
+    copies = L.copies
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sig = rpsss.sign(sk, doc)
     torch.cuda.synchronize()
     sign_ms = (time.perf_counter() - t0) * 1e3
     launches = {k.name: k.launches for k in kernels}
+    copies = L.copies - copies
 
     t0 = time.perf_counter()
     ok = rpsss.verify(pk, doc, sig)
@@ -321,7 +380,7 @@ def main_path(dev, kernels) -> tuple[dict, tuple]:
         require(count > 0, f"kernel {name} was not launched by the sign")
     result = dict(sign_ms=sign_ms, verify_ms=verify_ms, sign_cold_ms=cold_ms,
                   verify_cold_ms=verify_cold_ms, proof_bytes=len(sig),
-                  launches=launches)
+                  launches=launches, limb_operand_copies=copies)
     print("main path " + json.dumps(result), flush=True)
     return result, (rpsss, sk, pk, doc)
 
@@ -353,11 +412,21 @@ def profiled(fn) -> dict:
         elif e.name.startswith("stark."):
             stages[e.name] = stages.get(e.name, 0.0) + dur / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+
+    def share(prefix):  # device ms and launches of the kernels named so
+        hits = [v for k, v in by_kernel.items() if k.startswith(prefix)]
+        return [sum(ms for ms, _ in hits), sum(c for _, c in hits)]
+
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "device_launches": sum(c for _, c in by_kernel.values()),
+        # PyTorch's (unvectorised) elementwise kernels, where the limb
+        # tensor code ran before the limb kernels, and the limb kernels:
+        # [ms, launches]
+        "elementwise_kernel": share("void at::native::elementwise_kernel<"),
+        "limbs_kernels": share("limbs_"),
         "stages_host_ms": stages,
         "top_device_ms": {k: [v[0], v[1]] for k, v in top},
     }
@@ -437,8 +506,10 @@ def chain_path(dev, kernels) -> dict:
     proof_cold, cold_ms = prove()
     for k in kernels:
         k.launches = 0
+    copies = L.copies
     proof, warm_ms = prove()
     launches = {k.name: k.launches for k in kernels}
+    copies = L.copies - copies
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # two more warm proves: host time on a shared machine spreads
     warm_runs = [warm_ms] + [prove()[1] for _ in range(2)]
@@ -465,7 +536,8 @@ def chain_path(dev, kernels) -> dict:
                   prove_ms=statistics.median(warm_runs), prove_ms_runs=warm_runs,
                   verify_ms=verify_ms, verify_wrong_output_ms=verify_wrong_ms,
                   proof_bytes=len(proof), prove_peak_gb=peak_gb,
-                  verify_peak_gb=verify_peak_gb, launches=launches)
+                  verify_peak_gb=verify_peak_gb, launches=launches,
+                  limb_operand_copies=copies)
     print("chain path " + json.dumps(result), flush=True)
     result["profile"] = profiled(
         lambda: stark.prove(trace, air, boundary, ProofStream(stark.field)))
@@ -533,15 +605,25 @@ def long_ntt_phase(dev, int_rate: float, logs: dict | None = None) -> dict:
     for n, x in xs.items():
         root = roots[n]
         inv = pow(root, -1, L.P)
-        plain, p_ms = timed_once(lambda: N.ntt_passes_plain(x, root))
+        # the plain versions' own tables (plain products, cached under the
+        # same arguments), built before the timed call as the kernel's were
+        # by the path
+        for r in (root, inv):
+            for p in N.kernel_passes(n, 1, r):
+                if p.four_step is not None:
+                    run_plain(lambda: N._four_step_twiddles_u32(*p.four_step, str(dev),
+                                                                plain=True))
+        if n == LONG_NTT_SIZES[-1]:
+            run_plain(lambda: N._powers_dev(root, n // 2, 1, str(dev), plain=True))
+        plain, p_ms = timed_once(lambda: run_plain(N.ntt_passes_plain, x, root))
         err = check(f"ntt_mont n={n}", ys[n], plain)
         del plain
         err += check(f"ntt_kernel inverse root n={n}", N.ntt_kernel(x, inv),
-                     N.ntt_passes_plain(x, inv))
+                     run_plain(N.ntt_passes_plain, x, inv))
         require(torch.equal(backs[n], x), f"intt_mont(ntt_mont(x)) is not x at n={n}")
         flat_ms = None
         if n == LONG_NTT_SIZES[-1]:
-            flat, flat_ms = timed_once(lambda: N.ntt_plain(x, root))
+            flat, flat_ms = timed_once(lambda: run_plain(N.ntt_plain, x, root))
             err += check(f"ntt_mont n={n} against the flat plain transform", ys[n], flat)
             del flat
             # the grid's third index (batch columns of passes 2 and 3): two
@@ -641,15 +723,132 @@ def product_phase(dev) -> dict:
     b_vals = [b for _ in edge for b in edge] + [int(v) for v in rand[PRODUCT_PAIRS:]]
     a = L.from_numpy(L.ints_to_limbs(a_vals), dev)
     b = L.from_numpy(L.ints_to_limbs(b_vals), dev)
-    got = MC.mont_mul_kernel(a, b)
+    got = L.mont_mul_kernel(a, b)  # csrc/limbs.cu: one field.cuh product an element
     r_inv = pow(1 << 128, -1, L.P)
     want = [x * y * r_inv % L.P for x, y in zip(a_vals, b_vals)]
     require(list(L.limbs_to_ints(got)) == want, "field.cuh mont_mul differs from integers")
-    require(torch.equal(got, L.mont_mul(a, b)), "field.cuh mont_mul differs from limbs.mont_mul")
+    require(torch.equal(got, run_plain(L.mont_mul_plain, a, b)),
+            "field.cuh mont_mul differs from limbs.mont_mul_plain")
     print(f"product: field.cuh mont_mul equals Python integers on the {len(edge) ** 2} pairs of "
           f"{{0, 1, p-1, p-2}} and {PRODUCT_PAIRS} random pairs ({MONT_MUL_OPS} PTX instructions)",
           flush=True)
     return {"pairs": len(a_vals), "ptx_ops": MONT_MUL_OPS}
+
+
+def run_plain(fn, *args):
+    """``fn(*args)`` for a plain kernel version on the card's tensors: it
+    runs its own tensor code (ops/limbs.py *_plain), so no limb kernel may
+    be launched during it."""
+    before = [k.launches for k in L.KERNELS]
+    out = fn(*args)
+    moved = {k.name: k.launches - c for k, c in zip(L.KERNELS, before) if k.launches != c}
+    require(not moved, f"{getattr(fn, '__name__', fn)} launched limb kernels: {moved}")
+    return out
+
+
+#: op: (kernel wrapper, plain version, operands, 32-bit instructions an element)
+LIMB_OPS = {
+    "mont_mul": (L.mont_mul_kernel, L.mont_mul_plain, 2, MONT_MUL_OPS),
+    "add_mod": (L.add_mod_kernel, L.add_mod_plain, 2, ADD_SUB_OPS),
+    "sub_mod": (L.sub_mod_kernel, L.sub_mod_plain, 2, ADD_SUB_OPS),
+    "redc": (L.redc_kernel, L.redc_plain, 1, MONT_MUL_OPS),
+}
+
+
+def limb_bound(op: str, n: int, broadcast: bool, int_rate: float) -> tuple[float, str]:
+    """n elements of ``op``: each full-shape operand read once and the
+    output written once (64 B each; a broadcast operand is one element),
+    against its instructions."""
+    arrays = 1 + LIMB_OPS[op][2] - broadcast
+    return bound_ms(arrays * n * 64, n * LIMB_OPS[op][3], int_rate)
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host time of one call: the wall time of ``calls`` unsynchronised calls
+    over their count."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def limb_phase(dev, int_rate: float, logs: dict | None = None) -> dict:
+    """Phase 2c: the limb kernels (csrc/limbs.cu) at 4096, 2^20 and 2^25
+    elements, every op in every layout of limb_operands bit for bit against
+    its plain version (every pair of LIMB_EDGES leads the inputs); times of
+    the full and the broadcast layout beside their bounds, the plain
+    version timed once at 2^25; the host time of a call at 4096, kernel
+    against tensor code; one profiled call of each op, which must be one
+    launch of its kernel and nothing else.  Kernel times are queued
+    (measure.time_ms): at 4096 a call's host time exceeds its device time.
+    Returns one row per op."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print(f"ptxas {ptxas_line(logs or {}, 'limbs')}", flush=True)
+    gen = torch.Generator().manual_seed(46)
+    ea, eb = edge_pairs()
+    rows = {f"limbs_{op}": dict(kernel=k, source="zk_stark_tpu_torch/csrc/limbs.cu",
+                                max_abs_err=0, by_size={})
+            for op, k in zip(LIMB_OPS, L.KERNELS)}
+    launches0 = [k.launches for k in L.KERNELS]
+    copies0 = L.copies
+    for n in LIMB_SIZES:
+        a, b = random_mont(n, gen, dev), random_mont(n, gen, dev)
+        a[: len(ea)] = L.from_numpy(L.ints_to_limbs(ea), dev)
+        b[: len(eb)] = L.from_numpy(L.ints_to_limbs(eb), dev)
+        grid_rows = 1 << (n.bit_length() - 1) // 2
+        for op, (kernel, plain, arity, _) in LIMB_OPS.items():
+            row = rows[f"limbs_{op}"]
+            for layout in LIMB_LAYOUTS if arity == 2 else UNARY_LAYOUTS:
+                args = limb_operands(layout, a, b, grid_rows)[:arity]
+                err = check(f"limbs {op} {layout} n={n}", kernel(*args), run_plain(plain, *args))
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+            full, bc = (a, b)[:arity], (a, b[2])
+            bound = limb_bound(op, n, False, int_rate)
+            size = dict(ms=time_ms(lambda: kernel(*full), queued=True), bound_ms=bound[0],
+                        bound_by=bound[1])
+            if arity == 2:
+                size["broadcast_ms"] = time_ms(lambda: kernel(*bc), queued=True)
+                size["broadcast_bound_ms"] = limb_bound(op, n, True, int_rate)[0]
+            if n == LIMB_SIZES[-1]:
+                size["plain_ms"] = timed_once(lambda: run_plain(plain, *full))[1]
+            if n == LIMB_SIZES[0]:
+                size["host_us"] = host_us(lambda: kernel(*full))
+                size["plain_host_us"] = host_us(lambda: run_plain(plain, *full))
+            row["by_size"][f"n={n}"] = size
+            print(f"limbs {op} n={n}: bit-exact in layouts "
+                  f"{', '.join(LIMB_LAYOUTS if arity == 2 else UNARY_LAYOUTS)}; "
+                  + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                              for k, v in size.items()), flush=True)
+        if n == LIMB_SIZES[0]:
+            x, y = a, b
+        else:
+            del a, b
+    copies = L.copies - copies0
+    require(copies == len(LIMB_SIZES) * len(LIMB_OPS),
+            f"{copies} limb operand copies, one expected a transposed call")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for op, (_, _, arity, _) in LIMB_OPS.items():
+            getattr(L, op)(*(x, y)[:arity])  # the dispatching name
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    require(device == [k.symbol.replace("_launch", "_kernel") for k in L.KERNELS],
+            f"one profiled call of each limb op launched {device}")
+    print(f"limbs profiled: one call of each op on the card is one launch of its kernel: {device}",
+          flush=True)
+
+    for row, k, c in zip(rows.values(), L.KERNELS, launches0):
+        head = row["by_size"][f"n={LIMB_SIZES[-1]}"]
+        row.update(shape=f"n={LIMB_SIZES[-1]}", ms=head["ms"], plain_ms=head["plain_ms"],
+                   bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                   launches_own_phase=k.launches - c, copies_own_phase=copies)
+    return rows
 
 
 def sass_ops_per_product() -> float:
@@ -688,7 +887,7 @@ def montmul_chain_phase(dev, int_rate: float) -> dict:
     """Phase 8a: the chained product, the card's measured product rate."""
     gen = torch.Generator().manual_seed(42)
     x = random_mont(CHAIN_N, gen, dev)
-    plain, p_ms = timed_once(lambda: MC.mont_mul_chain_plain(x, CHAIN_K))
+    plain, p_ms = timed_once(lambda: run_plain(MC.mont_mul_chain_plain, x, CHAIN_K))
     err = check(f"montmul_chain n={CHAIN_N} k={CHAIN_K}", MC.mont_mul_chain_kernel(x, CHAIN_K), plain)
     probe_vals = (2, 3, L.P - 1)
     probe = L.ints_to_mont(probe_vals, dev)
@@ -814,7 +1013,8 @@ def rescue_phase(dev, int_rate: float, ns_per_product: float, sass_per_product: 
         if n < RESCUE_SIZES[-1]:
             state = torch.cat([x.unsqueeze(1), torch.zeros_like(x).unsqueeze(1)], dim=1)
             plain, size["plain_ms"] = timed_once(
-                lambda: R.permutation_plain(state, mds, rc, rp.N, rp.alpha, rp.alpha_inv))
+                lambda: run_plain(R.permutation_plain, state, mds, rc, rp.N, rp.alpha,
+                                  rp.alpha_inv))
             got = R.permutation_kernel(state, mds, rc, rp.N, rp.alpha, rp.alpha_inv)
             row["max_abs_err"] = max(row["max_abs_err"], check(f"rescue n={n}", got, plain))
             require(torch.equal(got[:, 0], outs[n]), f"rescue n={n}: hash_batch_device differs")
@@ -855,7 +1055,7 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
 
-    rpsss_kernels = [N.NTT_KERNEL, FO.FOLD_KERNEL, B.LEAF_KERNEL, B.NODE_KERNEL]
+    rpsss_kernels = [N.NTT_KERNEL, FO.FOLD_KERNEL, B.LEAF_KERNEL, B.NODE_KERNEL, *L.KERNELS]
     chain_kernels = rpsss_kernels + [N.NTT_TW_KERNEL]
     long_kernels = [N.NTT_LONG_TW_KERNEL, N.NTT_LONG_KERNEL, *NV.VARIANT_KERNELS.values()]
     hash_kernels = [MC.MONTMUL_CHAIN_KERNEL, B.COMPRESS_KERNEL, R.RESCUE_KERNEL]
@@ -869,7 +1069,9 @@ def main() -> int:
     int_rate = int32_ops_per_s()
     print(f"int32 peak: {int_rate:.4e} instructions/s", flush=True)
     product = product_phase(dev)
+    limb_rows = limb_phase(dev, int_rate, logs)
     rows = compare_kernels(dev, int_rate)
+    rows.update(limb_rows)
     fixture_phase(dev)
     main, signer = main_path(dev, rpsss_kernels)
     main["profile"] = profile_phase(*signer)

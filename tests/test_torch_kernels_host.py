@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from zk_stark_tpu.ops import limbs as JL
 from zk_stark_tpu_torch.field import FIELD_PRIME as P
 from zk_stark_tpu_torch.field import Field
 from zk_stark_tpu_torch.models.rescue_prime import RescuePrime
@@ -42,7 +44,7 @@ _HARNESS = r"""
 #include <vector>
 struct Dim { unsigned x, y, z; };
 static thread_local Dim threadIdx;
-static Dim blockIdx, blockDim;
+static Dim blockIdx, blockDim, gridDim;
 // __syncthreads(): every thread of the block waits for all the others
 struct Barrier {
   std::mutex m;
@@ -73,6 +75,7 @@ Fe4 sh[1 << 13];
 #include "rescue.cu"
 uint32_t rescue_smem[1 << 14];
 #include "montmul_chain.cu"
+#include "limbs.cu"
 
 extern "C" void host_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n) {
   for (int i = 0; i < n; ++i)
@@ -155,6 +158,18 @@ extern "C" void host_chain(const int64_t* x, int64_t* y, int n, int k) {
   grid(n);
   for (int i = 0; i < n; ++i) { blockIdx.x = i; montmul_chain_kernel(x, y, n, k); }
 }
+// one thread in a grid of one block: its grid-stride loop covers all n
+extern "C" void host_limbs(int op, const int64_t* a, const int64_t* b, int64_t* out, int64_t n,
+                           int ndim, const int64_t* size, const int64_t* sa, const int64_t* sb) {
+  grid(1);
+  gridDim.x = 1; blockIdx.x = 0;
+  const limbs::Index4 s{{size[0], size[1], size[2], size[3]}};
+  const limbs::Index4 ia{{sa[0], sa[1], sa[2], sa[3]}}, ib{{sb[0], sb[1], sb[2], sb[3]}};
+  if (op == 0) limbs_mont_mul_kernel(a, b, out, n, ndim, s, ia, ib);
+  if (op == 1) limbs_add_mod_kernel(a, b, out, n, ndim, s, ia, ib);
+  if (op == 2) limbs_sub_mod_kernel(a, b, out, n, ndim, s, ia, ib);
+  if (op == 3) limbs_redc_kernel(a, out, n, ndim, s, ia);
+}
 """
 
 
@@ -182,6 +197,9 @@ def lib(tmp_path_factory):
                                 + [words, ctypes.c_int, words, ctypes.c_int, ctypes.c_int])
     lib.host_mont_mul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.host_chain.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    index = ctypes.POINTER(ctypes.c_int64)
+    lib.host_limbs.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                               + [ctypes.c_int64, ctypes.c_int] + [index] * 3)
     return lib
 
 
@@ -304,6 +322,69 @@ def test_mont_mul_source(lib):
     lib.host_mont_mul(*_ptrs(a, b, out), len(a_vals))
     r_inv = pow(1 << 128, -1, P)
     assert list(L.limbs_to_ints(out)) == [x * y * r_inv % P for x, y in zip(a_vals, b_vals)]
+
+
+#: op: (its code in host_limbs, the plain version, the JAX package's function
+#: or None, the value in integers)
+LIMB_OPS = {
+    "mont_mul": (0, L.mont_mul_plain, JL.mont_mul_jit,
+                 lambda x, y: x * y * pow(L.R_INT, -1, P) % P),
+    "add_mod": (1, L.add_mod_plain, JL.add_mod_jit, lambda x, y: (x + y) % P),
+    "sub_mod": (2, L.sub_mod_plain, JL.sub_mod_jit, lambda x, y: (x - y) % P),
+    "redc": (3, L.redc_plain, None, lambda x: x * pow(L.R_INT, -1, P) % P),
+}
+LIMB_CASES = [(op, layout) for op in LIMB_OPS
+              for layout in (chip_smoke.UNARY_LAYOUTS if op == "redc" else chip_smoke.LIMB_LAYOUTS)]
+#: 384 = 24 x 16 elements (the outer layout's rows and columns), 64 at a
+#: time through the JAX package (the shape tests/test_torch_limbs.py compiles)
+LIMB_N, LIMB_ROWS, JAX_CHUNK = 384, 24, 64
+
+
+@pytest.fixture(scope="module")
+def limb_values():
+    """Every pair of chip_smoke.LIMB_EDGES, then seeded random values."""
+    rng = np.random.default_rng(66)
+    rand = [int(h) << 64 | int(lo) for h, lo in
+            zip(rng.integers(0, 1 << 63, 2 * LIMB_N, dtype=np.uint64),
+                rng.integers(0, 1 << 63, 2 * LIMB_N, dtype=np.uint64))]
+    ea, eb = chip_smoke.edge_pairs()
+    a = ea + [v % P for v in rand[: LIMB_N - len(ea)]]
+    b = eb + [v % P for v in rand[LIMB_N:2 * LIMB_N - len(eb)]]
+    return a, b
+
+
+@pytest.mark.parametrize("op, layout", LIMB_CASES, ids=[f"{o}-{l}" for o, l in LIMB_CASES])
+def test_limb_kernel_source(lib, limb_values, op, layout):
+    """limbs.cu's four entry points in every layout of chip_smoke.py's limb
+    phase, read through the sizes and strides kernel_plan hands the launch
+    (broadcast dimensions of stride 0, strided slices, four dimensions that
+    do not merge, a limb-transposed operand copied first), against the
+    plain versions; the full layout also
+    against the JAX package (64 elements a call) and integers."""
+    code, plain, jax_fn, host = LIMB_OPS[op]
+    a = L.from_numpy(L.ints_to_limbs(limb_values[0]), "cpu")
+    b = L.from_numpy(L.ints_to_limbs(limb_values[1]), "cpu")
+    operands = chip_smoke.limb_operands(layout, a, b, LIMB_ROWS)[: 1 if op == "redc" else 2]
+    copies = L.copies
+    lead, ndim, sizes, strides, views = L.kernel_plan(*operands)
+    assert L.copies - copies == (layout == "transposed")
+    assert ndim == {"outer": 2, "permuted": 4}.get(layout, 1)
+    assert sizes[:L.KERNEL_DIMS - ndim] == [1] * (L.KERNEL_DIMS - ndim)
+    out = torch.full(lead + (L.NLIMB,), -1, dtype=L.DTYPE)
+    n = out.numel() // L.NLIMB
+    index = ctypes.c_int64 * 4
+    lib.host_limbs(code, views[0].data_ptr(), views[-1].data_ptr(), out.data_ptr(), n, ndim,
+                   index(*sizes), index(*strides[0]), index(*strides[-1]))
+    assert n == LIMB_N
+    assert torch.equal(out, plain(*operands))
+    if layout == "full":
+        ints = [L.limbs_to_ints(t) for t in operands]
+        assert [int(v) for v in L.limbs_to_ints(out)] == [host(*vs) for vs in zip(*ints)]
+        if jax_fn is not None:
+            for lo in range(0, n, JAX_CHUNK):
+                chunk = [np.asarray(t[lo:lo + JAX_CHUNK]).astype(np.uint32) for t in operands]
+                assert np.array_equal(out[lo:lo + JAX_CHUNK].numpy().astype(np.uint32),
+                                      np.asarray(jax_fn(*chunk)))
 
 
 @pytest.mark.parametrize("which", V.VARIANTS)

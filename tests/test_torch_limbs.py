@@ -4,6 +4,8 @@ Inputs are made from a numpy seed and handed to both packages; every
 comparison is exact (integer field arithmetic).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -134,3 +136,111 @@ def test_cumprod_blocked(operands):
         expect.append(acc)
     assert [int(v) for v in L.mont_to_ints(got)] == expect
     assert torch.equal(got, L.cumprod_mont_blocked(L.ints_to_mont(vals, "cpu"), cols=3))
+
+
+#: the dispatching names, their plain versions and kernel wrappers, and
+#: how many operands they take
+DISPATCH = [
+    (L.mont_mul, L.mont_mul_plain, L.mont_mul_kernel, 2),
+    (L.add_mod, L.add_mod_plain, L.add_mod_kernel, 2),
+    (L.sub_mod, L.sub_mod_plain, L.sub_mod_kernel, 2),
+    (L.redc, L.redc_plain, L.redc_kernel, 1),
+]
+DISPATCH_IDS = ["mont_mul", "add_mod", "sub_mod", "redc"]
+
+
+@pytest.mark.parametrize("fn, plain, kernel, arity", DISPATCH, ids=DISPATCH_IDS)
+def test_dispatch_on_cpu_is_plain(operands, fn, plain, kernel, arity):
+    """On CPU tensors the dispatching names are the plain versions, also
+    broadcast ([4, 1, 8] against [16, 8]) and on strided slices."""
+    a, b = (_port(v) for v in operands)
+    for args in [(a, b), (a[:4].unsqueeze(1), b[:16]), (a[0::2], b[1::2])]:
+        assert torch.equal(fn(*args[:arity]), plain(*args[:arity]))
+
+
+@pytest.mark.parametrize("fn, plain, kernel, arity", DISPATCH, ids=DISPATCH_IDS)
+def test_kernel_wrappers_refuse_cpu_and_mixed_devices(operands, fn, plain, kernel, arity):
+    """A kernel wrapper takes CUDA tensors only: it raises ValueError on a
+    CPU tensor, and on operands of two devices (here the CPU and "meta",
+    through the dispatching name too), before any launch."""
+    a = _port(operands[0])
+    launches = [k.launches for k in L.KERNELS]
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel(*[a] * arity)
+    if arity == 2:
+        other = torch.empty_like(a, device="meta")
+        for args in [(a, other), (other, a)]:
+            with pytest.raises(ValueError):
+                fn(*args)
+    assert [k.launches for k in L.KERNELS] == launches
+
+
+def test_limb_kernels_name_their_counterparts():
+    assert [k.name for k in L.KERNELS] == [f"limbs_{op}" for op in DISPATCH_IDS]
+    assert {k.library for k in L.KERNELS} == {"limbs"}
+    assert all(k.replaces.startswith("zk_stark_tpu/ops/limbs.py:") for k in L.KERNELS)
+
+
+def test_kernel_plan_collapses_and_copies(operands):
+    """kernel_plan merges what it can (a contiguous operand against a
+    broadcast element is one dimension), keeps [r, 1] x [1, c] as two, and
+    copies an operand whose limbs are not adjacent, or all of them when
+    more than KERNEL_DIMS dimensions remain."""
+    a = _port(operands[0])
+    _, ndim, sizes, strides, _ = L.kernel_plan(a.reshape(8, 8, L.NLIMB), a[0])
+    assert (ndim, sizes, strides) == (1, [1, 1, 1, 64], [[0, 0, 0, 8], [0, 0, 0, 0]])
+    _, ndim, sizes, strides, _ = L.kernel_plan(a[:4].unsqueeze(1), a[:16].unsqueeze(0))
+    assert (ndim, sizes, strides) == (2, [1, 1, 4, 16], [[0, 0, 8, 0], [0, 0, 0, 8]])
+    copies = L.copies
+    L.kernel_plan(a.t().contiguous().t(), a)
+    assert L.copies == copies + 1
+    # [2, 1, 2, 1, 2] against [1, 2, 1, 2, 1]: five dimensions, none mergeable
+    lead, ndim, sizes, _, views = L.kernel_plan(a[:8].reshape(2, 1, 2, 1, 2, L.NLIMB),
+                                                a[:4].reshape(1, 2, 1, 2, 1, L.NLIMB))
+    assert L.copies == copies + 3 and (ndim, sizes[-1], math.prod(lead)) == (1, 32, 32)
+    assert all(v.is_contiguous() for v in views)
+
+
+def test_plain_versions_reach_no_dispatching_name(monkeypatch, operands):
+    """The plain kernel versions that chip_smoke.py holds the kernels
+    against on the card run their own tensor code: with the dispatching
+    names raising, the plain fold, NTT (its power table built anew), leaf
+    and node digests, Rescue permutation and chained product still run and
+    equal what they gave before."""
+    from zk_stark_tpu_torch.models.rescue_prime import RescuePrime
+    from zk_stark_tpu_torch.ops import blake2b as B
+    from zk_stark_tpu_torch.ops import fold as FO
+    from zk_stark_tpu_torch.ops import montmul_chain as MC
+    from zk_stark_tpu_torch.ops import ntt as N
+    from zk_stark_tpu_torch.ops import rescue_ops as R
+
+    n = 64
+    cw = _port(operands[0])
+    invpows = _port(operands[1][: n // 2])
+    ao, two_inv = L.int_to_mont(123456789, "cpu"), L.int_to_mont(pow(2, -1, P), "cpu")
+    root = F.primitive_nth_root(n).value
+    rp = RescuePrime(F)
+    mds, rc = rp._device_constants("cpu")
+    state = cw[:6].reshape(3, 2, L.NLIMB)
+
+    def run():
+        canon = FO.fold_plain(cw, invpows, ao, two_inv)[1]
+        leaves = B.leaf_digests_plain(canon)
+        return [*FO.fold_plain(cw, invpows, ao, two_inv), N.ntt_plain(cw, root), leaves,
+                B.node_digests_plain(leaves),
+                R.permutation_plain(state, mds, rc, 2, rp.alpha, rp.alpha_inv),
+                MC.mont_mul_chain_plain(cw, 3)]
+
+    want = run()
+
+    def refuse(*args):
+        raise AssertionError("a plain version reached a dispatching limb name")
+
+    for name in ("mont_mul", "add_mod", "sub_mod", "redc"):
+        monkeypatch.setattr(L, name, refuse)
+    N._powers_dev.cache_clear()
+    try:
+        got = run()
+    finally:
+        N._powers_dev.cache_clear()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -114,8 +114,9 @@ def test_products_per_permutation(rp, monkeypatch):
     mds, rc = rp._device_constants("cpu")
     state = L.ints_to_mont([HASH_A, 7], "cpu").reshape(1, 2, L.NLIMB)
     want = R.permutation_plain(state, mds, rc, 2, rp.alpha, rp.alpha_inv)
-    monkeypatch.setattr(L, "mont_mul", counted(L.mont_mul, "mul"))
-    monkeypatch.setattr(L, "add_mod", counted(L.add_mod, "add"))
+    # the plain versions count them: chain_pow and _mds_mul are tensor code
+    monkeypatch.setattr(L, "mont_mul_plain", counted(L.mont_mul_plain, "mul"))
+    monkeypatch.setattr(L, "add_mod_plain", counted(L.add_mod_plain, "add"))
     s = state
     for r in range(2):  # the kernel's round: chains for the S-boxes
         for e, c0 in ((rp.alpha, 2 * r * 2), (rp.alpha_inv, 2 * r * 2 + 2)):

@@ -14,9 +14,6 @@
 //
 // Bound: operations.  64 bytes in and 64 out per element against k products
 // of 64 integer instructions each (field.cuh; tools/measure.py mont_mul_ops).
-//
-// mont_mul_kernel, one product a[i] * b[i] a thread, is no port: it holds
-// field.cuh's product against integers on the card (chip_smoke.py).
 
 #include <stdint.h>
 
@@ -40,25 +37,8 @@ extern "C" __global__ void montmul_chain_kernel(const int64_t* __restrict__ x,
     zk::store_fe(y + 8 * (size_t)i, acc);
 }
 
-// a, b, out: [n, 8] int64 limbs; out[i] = a[i] * b[i] * R^-1 mod p
-extern "C" __global__ void mont_mul_kernel(const int64_t* __restrict__ a,
-                                           const int64_t* __restrict__ b,
-                                           int64_t* __restrict__ out, int n) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    zk::store_fe(out + 8 * (size_t)i,
-                 zk::mont_mul(zk::load_fe(a + 8 * (size_t)i), zk::load_fe(b + 8 * (size_t)i)));
-}
-
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
-
-extern "C" int mont_mul_launch(const void* a, const void* b, void* out, int n, void* stream) {
-    const int threads = 128;
-    mont_mul_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)a, (const int64_t*)b, (int64_t*)out, n);
-    return (int)cudaGetLastError();
-}
 
 extern "C" int montmul_chain_launch(const void* x, void* y, int n, int k, void* stream) {
     const int threads = 128;

@@ -33,11 +33,11 @@ def fold_plain(cw, invpows, ao, two_inv):
     -> (folded [n/2, 8], canon [n/2, 8])."""
     half = cw.shape[0] // 2
     lo, hi = cw[:half], cw[half:]
-    f = L.mont_mul(invpows, ao)
-    s = L.add_mod(lo, hi)
-    d = L.sub_mod(lo, hi)
-    folded = L.mont_mul(two_inv, L.add_mod(s, L.mont_mul(f, d)))
-    return folded, L.from_mont(folded)
+    f = L.mont_mul_plain(invpows, ao)
+    s = L.add_mod_plain(lo, hi)
+    d = L.sub_mod_plain(lo, hi)
+    folded = L.mont_mul_plain(two_inv, L.add_mod_plain(s, L.mont_mul_plain(f, d)))
+    return folded, L.redc_plain(folded)
 
 
 def fold_kernel(cw, invpows, ao, two_inv):

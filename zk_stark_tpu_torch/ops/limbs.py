@@ -13,16 +13,25 @@ scatter-add into 17 columns, and the Montgomery reduction runs 8 steps on
 Carry chains normalise a stacked pair (``x`` and ``x - p``) in one pass, so a
 conditional subtraction costs no second chain.
 
-This is tensor code, not a kernel: it runs as is on the CPU and on the card.
+That tensor code is the plain version (``mont_mul_plain``, ``add_mod_plain``,
+``sub_mod_plain``, ``redc_plain``) of ``csrc/limbs.cu``, which computes each
+of the four in one launch on the card.  ``mont_mul``, ``add_mod``,
+``sub_mod`` and ``redc`` launch the kernel on CUDA tensors (or raise) and
+run the plain version on CPU tensors; everything else here (``neg_mod``,
+``to_mont``, ``from_mont``, the powers, scans and inversions) is built on
+those four.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
 import numpy as np
 import torch
+
+from . import _build
 
 # -----------------------------------------------------------------------------
 # Constants
@@ -153,12 +162,12 @@ def _select_reduced(raw: torch.Tensor, top: torch.Tensor | None = None):
 # -----------------------------------------------------------------------------
 
 
-def add_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def add_mod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod p on [..., 8]; inputs in [0, p)."""
     return _select_reduced(a + b)
 
 
-def sub_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def sub_mod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a - b) mod p on [..., 8]; inputs in [0, p)."""
     d = a - b
     both = torch.stack([d, d + _p(d)], dim=-2)
@@ -199,13 +208,13 @@ def _redc_columns(t: torch.Tensor) -> torch.Tensor:
     return _select_reduced(t[..., NLIMB : 2 * NLIMB], t[..., 2 * NLIMB])
 
 
-#: most elements one step of :func:`mont_mul` multiplies: a step keeps a
+#: most elements one step of :func:`mont_mul_plain` multiplies: a step keeps a
 #: [..., 64] int64 temporary (512 B an element, 2 GiB at 2^22), so larger
 #: products run in blocks along their leading dimensions
 MUL_BLOCK = 1 << 22
 
 
-def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a*b*R^-1 mod p; inputs and output in [0, p).
 
     Broadcasts over leading dimensions, in blocks of at most
@@ -220,7 +229,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     step = MUL_BLOCK // math.prod(lead[1:])
     if step == 0:  # one index of the first dimension is itself too large
         for i in range(lead[0]):
-            out[i] = mont_mul(a[i], b[i])
+            out[i] = mont_mul_plain(a[i], b[i])
         return out
     for lo in range(0, lead[0], step):
         out[lo : lo + step] = _mont_mul_block(a[lo : lo + step], b[lo : lo + step])
@@ -228,7 +237,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _mont_mul_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """:func:`mont_mul` of two tensors of one shape, in one step."""
+    """:func:`mont_mul_plain` of two tensors of one shape, in one step."""
     lead = a.shape[:-1]
     prod = (a.unsqueeze(-1) * b.unsqueeze(-2)).reshape(lead + (NLIMB * NLIMB,))
     t = torch.zeros(lead + (2 * NLIMB + 1,), dtype=DTYPE, device=a.device)
@@ -236,16 +245,192 @@ def _mont_mul_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _redc_columns(t)
 
 
-def mont_sqr(a: torch.Tensor) -> torch.Tensor:
-    return mont_mul(a, a)
-
-
-def redc(a: torch.Tensor) -> torch.Tensor:
+def redc_plain(a: torch.Tensor) -> torch.Tensor:
     """a*R^-1 mod p for a field element (half the cost of mont_mul(a, 1))."""
     lead = a.shape[:-1]
     t = torch.zeros(lead + (2 * NLIMB + 1,), dtype=DTYPE, device=a.device)
     t[..., :NLIMB] = a
     return _redc_columns(t)
+
+
+# -----------------------------------------------------------------------------
+# The kernel (csrc/limbs.cu) and the dispatching names
+# -----------------------------------------------------------------------------
+
+#: leading dimensions the kernel indexes (``limbs::Index4``)
+KERNEL_DIMS = 4
+_INDEX = [ctypes.c_int64, ctypes.c_int] + [ctypes.c_int64] * 4
+_BINARY = [ctypes.c_void_p] * 3 + _INDEX + [ctypes.c_int64] * 8 + [ctypes.c_void_p]
+MONT_MUL_KERNEL = _build.Kernel(
+    "limbs", "limbs_mont_mul_launch", _BINARY,
+    replaces="zk_stark_tpu/ops/limbs.py:181 (mont_mul, XLA-fused)", name="limbs_mont_mul",
+)
+ADD_MOD_KERNEL = _build.Kernel(
+    "limbs", "limbs_add_mod_launch", _BINARY,
+    replaces="zk_stark_tpu/ops/limbs.py:146 (add_mod, XLA-fused)", name="limbs_add_mod",
+)
+SUB_MOD_KERNEL = _build.Kernel(
+    "limbs", "limbs_sub_mod_launch", _BINARY,
+    replaces="zk_stark_tpu/ops/limbs.py:154 (sub_mod, XLA-fused)", name="limbs_sub_mod",
+)
+REDC_KERNEL = _build.Kernel(
+    "limbs", "limbs_redc_launch", [ctypes.c_void_p] * 2 + _INDEX + [ctypes.c_int64] * 4
+    + [ctypes.c_void_p],
+    replaces="zk_stark_tpu/ops/limbs.py:235 (from_mont, XLA-fused)", name="limbs_redc",
+)
+KERNELS = (MONT_MUL_KERNEL, ADD_MOD_KERNEL, SUB_MOD_KERNEL, REDC_KERNEL)
+
+#: operands :func:`kernel_plan` copied to a contiguous layout (a limb stride
+#: other than 1, or more than KERNEL_DIMS leading dimensions after collapsing)
+copies = 0
+
+
+def _collapse(lead, strides):
+    """Drop the dimensions of size 1 of ``lead`` and merge each dimension
+    into the one before it where every operand steps through both evenly.
+    Returns (sizes, each operand's strides)."""
+    sizes, out = [], [[] for _ in strides]
+    for d, n in enumerate(lead):
+        if n == 1:
+            continue
+        if sizes and all(o[-1] == s[d] * n for o, s in zip(out, strides)):
+            sizes[-1] *= n
+            for o, s in zip(out, strides):
+                o[-1] = s[d]
+        else:
+            sizes.append(n)
+            for o, s in zip(out, strides):
+                o.append(s[d])
+    return sizes, out
+
+
+def _broadcast(shapes) -> tuple:
+    """The broadcast of leading shapes (torch.broadcast_shapes, in a few
+    integer operations)."""
+    nd = max(len(s) for s in shapes)
+    out = [1] * nd
+    for s in shapes:
+        for d, n in enumerate(s, nd - len(s)):
+            if n != 1 and n != out[d]:
+                if out[d] != 1:
+                    raise ValueError(f"limb operands of shapes {shapes} do not broadcast")
+                out[d] = n
+    return tuple(out)
+
+
+def _lead_strides(t: torch.Tensor, nd: int) -> list:
+    """t's element strides over the nd leading dimensions of the broadcast
+    shape: 0 where t has no such dimension or one of size 1."""
+    return [0] * (nd + 1 - t.dim()) + [
+        s if n != 1 else 0 for n, s in zip(t.shape[:-1], t.stride()[:-1])
+    ]
+
+
+def kernel_plan(*operands: torch.Tensor):
+    """How ``csrc/limbs.cu`` reads ``operands`` (one or two int64 [..., 8]
+    tensors, any device): (the output's leading shape, ndim, the KERNEL_DIMS
+    sizes, each operand's KERNEL_DIMS element strides, the operands whose
+    pointers it takes).  Broadcast dimensions get stride 0; an operand with
+    a limb stride other than 1 is copied first, and all of them are, in the
+    broadcast shape, when more than KERNEL_DIMS dimensions remain.  Plain
+    integer work on shapes and strides: it is the host cost of a call."""
+    global copies
+    a = operands[0]
+    if a.is_contiguous() and all(
+        (t.shape == a.shape and t.is_contiguous()) or (t.dim() == 1 and t.stride(0) == 1)
+        for t in operands[1:]
+    ):  # the common calls: one shape, or against a single [8] element
+        n = a.numel() // NLIMB
+        strides = [[0, 0, 0, NLIMB if t.dim() > 1 else 0] for t in operands]
+        return tuple(a.shape[:-1]), 1, [1, 1, 1, n], strides, operands
+    views = list(operands)
+    for i, t in enumerate(views):
+        if t.stride(-1) != 1:
+            views[i] = t.contiguous()
+            copies += 1
+    shapes = [tuple(t.shape[:-1]) for t in views]
+    lead = shapes[0] if all(s == shapes[0] for s in shapes) else _broadcast(shapes)
+    sizes, strides = _collapse(lead, [_lead_strides(t, len(lead)) for t in views])
+    if len(sizes) > KERNEL_DIMS:
+        copies += len(views)
+        views = [t.expand(lead + (NLIMB,)).contiguous() for t in views]
+        sizes, strides = _collapse(lead, [_lead_strides(t, len(lead)) for t in views])
+    if not sizes:  # a single element
+        sizes, strides = [1], [[0] for _ in views]
+    pad = KERNEL_DIMS - len(sizes)
+    strides = [[0] * pad + s for s in strides]
+    return lead, len(sizes), [1] * pad + sizes, strides, views
+
+
+def _launch(kernel: _build.Kernel, name: str, *operands: torch.Tensor) -> torch.Tensor:
+    dev = operands[0].device
+    for t in operands:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected CUDA tensors, got one on {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {dev} and {t.device}")
+        if t.dtype != DTYPE or t.dim() == 0 or t.shape[-1] != NLIMB:
+            raise ValueError(f"{name}: expected {DTYPE} [..., {NLIMB}] limbs, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    lead, ndim, sizes, strides, views = kernel_plan(*operands)
+    out = torch.empty(lead + (NLIMB,), dtype=DTYPE, device=dev)
+    n = out.numel() // NLIMB
+    if n:
+        kernel(*(v.data_ptr() for v in views), out.data_ptr(), n, ndim, *sizes,
+               *(s for st in strides for s in st), _build.stream_ptr(dev))
+    return out
+
+
+def mont_mul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/limbs.cu``'s product; same contract as :func:`mont_mul_plain`."""
+    return _launch(MONT_MUL_KERNEL, "mont_mul_kernel", a, b)
+
+
+def add_mod_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/limbs.cu``'s addition; same contract as :func:`add_mod_plain`."""
+    return _launch(ADD_MOD_KERNEL, "add_mod_kernel", a, b)
+
+
+def sub_mod_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/limbs.cu``'s subtraction; same contract as :func:`sub_mod_plain`."""
+    return _launch(SUB_MOD_KERNEL, "sub_mod_kernel", a, b)
+
+
+def redc_kernel(a: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/limbs.cu``'s REDC; same contract as :func:`redc_plain`."""
+    return _launch(REDC_KERNEL, "redc_kernel", a)
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a*b*R^-1 mod p, broadcasting: the kernel unless both lie on the CPU."""
+    if a.is_cpu and b.is_cpu:
+        return mont_mul_plain(a, b)
+    return mont_mul_kernel(a, b)
+
+
+def add_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p, broadcasting: the kernel unless both lie on the CPU."""
+    if a.is_cpu and b.is_cpu:
+        return add_mod_plain(a, b)
+    return add_mod_kernel(a, b)
+
+
+def sub_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod p, broadcasting: the kernel unless both lie on the CPU."""
+    if a.is_cpu and b.is_cpu:
+        return sub_mod_plain(a, b)
+    return sub_mod_kernel(a, b)
+
+
+def redc(a: torch.Tensor) -> torch.Tensor:
+    """a*R^-1 mod p: the kernel unless ``a`` lies on the CPU."""
+    if a.is_cpu:
+        return redc_plain(a)
+    return redc_kernel(a)
+
+
+def mont_sqr(a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(a, a)
 
 
 def to_mont(a: torch.Tensor) -> torch.Tensor:
@@ -263,15 +448,18 @@ def from_mont(a: torch.Tensor) -> torch.Tensor:
 # -----------------------------------------------------------------------------
 
 
-def mont_pow(a: torch.Tensor, e: int) -> torch.Tensor:
-    """a^e in Montgomery domain (e a Python int >= 0), square-and-multiply."""
+def mont_pow(a: torch.Tensor, e: int, mul=None) -> torch.Tensor:
+    """a^e in Montgomery domain (e a Python int >= 0), square-and-multiply;
+    products by ``mul`` (:func:`mont_mul` unless given: a plain version
+    passes :func:`mont_mul_plain`)."""
+    mul = mul or mont_mul
     if e == 0:
         return one_mont(a.device).expand(a.shape).clone()
     acc = a
     for bit in bin(e)[3:]:
-        acc = mont_sqr(acc)
+        acc = mul(acc, acc)
         if bit == "1":
-            acc = mont_mul(acc, a)
+            acc = mul(acc, a)
     return acc
 
 
@@ -289,7 +477,7 @@ def window_digits(e: int) -> list[int]:
     return [(e >> (POW_WINDOW * (ndig - 1 - i))) & mask for i in range(ndig)]
 
 
-def mont_pow_windowed(a: torch.Tensor, e: int) -> torch.Tensor:
+def mont_pow_windowed(a: torch.Tensor, e: int, mul=None) -> torch.Tensor:
     """a^e in Montgomery domain by fixed-window exponentiation.
 
     Counterpart of the JAX package's ``limbs.mont_pow_windowed``: digits of
@@ -298,22 +486,24 @@ def mont_pow_windowed(a: torch.Tensor, e: int) -> torch.Tensor:
     zero digit), as ``csrc/rescue.cu`` computes the inverse S-box.
     For the Rescue inverse S-box's 128-bit exponent (65 set bits) that is
     169 products against 191 for square-and-multiply.  Exponents of at most
-    ``POW_UNROLL_BITS`` bits go to :func:`mont_pow`.
+    ``POW_UNROLL_BITS`` bits go to :func:`mont_pow`.  Products by ``mul``,
+    as there.
     """
+    mul = mul or mont_mul
     if e.bit_length() <= POW_UNROLL_BITS:
-        return mont_pow(a, e)
+        return mont_pow(a, e, mul)
     # table[d] = a^d; a^0 is never selected (the first digit is nonzero and
     # a zero digit costs no product)
     table = [None, a]
     for _ in range(2, 1 << POW_WINDOW):
-        table.append(mont_mul(table[-1], a))
+        table.append(mul(table[-1], a))
     digits = window_digits(e)
     acc = table[digits[0]]
     for d in digits[1:]:
         for _ in range(POW_WINDOW):
-            acc = mont_sqr(acc)
+            acc = mul(acc, acc)
         if d:
-            acc = mont_mul(acc, table[d])
+            acc = mul(acc, table[d])
     return acc
 
 

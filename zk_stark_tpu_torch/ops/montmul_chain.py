@@ -7,9 +7,7 @@ that prices the Rescue kernel's measured-rate ceiling in ``chip_smoke.py``.
 
 On a CUDA tensor :func:`mont_mul_chain` launches ``csrc/montmul_chain.cu``;
 on a CPU tensor it runs :func:`mont_mul_chain_plain`, k calls of
-``limbs.mont_mul``.  :func:`mont_mul_kernel` runs one product of the
-kernels' ``csrc/field.cuh`` a pair, to hold it against integers on the
-card.
+``limbs.mont_mul_plain``.
 """
 
 from __future__ import annotations
@@ -27,21 +25,13 @@ MONTMUL_CHAIN_KERNEL = _build.Kernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     replaces="bench.py:202 (kern)",
 )
-#: one product a pair: a check of csrc/field.cuh, no port of a TPU kernel
-MONT_MUL_KERNEL = _build.Kernel(
-    "montmul_chain",
-    "mont_mul_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p],
-    replaces="none (a check of csrc/field.cuh mont_mul)",
-    name="mont_mul",
-)
 
 
 def mont_mul_chain_plain(x: torch.Tensor, k: int = 32) -> torch.Tensor:
     """y <- y * x, k times from y = x, elementwise on [n, 8]: x^(k+1)."""
     y = x
     for _ in range(k):
-        y = L.mont_mul(y, x)
+        y = L.mont_mul_plain(y, x)
     return y
 
 
@@ -65,14 +55,3 @@ def mont_mul_chain(x: torch.Tensor, k: int = 32) -> torch.Tensor:
     _build.check_device(x, "mont_mul_chain")
     return mont_mul_chain_plain(x, k)
 
-
-def mont_mul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a * b * R^-1 mod p elementwise on CUDA [n, 8] limbs, by field.cuh's
-    product (``limbs.mont_mul`` is its plain version)."""
-    n = a.shape[0]
-    _build.check_cuda_tensor(a, "mont_mul a", L.DTYPE, (n, L.NLIMB))
-    _build.check_cuda_tensor(b, "mont_mul b", L.DTYPE, (n, L.NLIMB))
-    out = torch.empty_like(a)
-    if n:
-        MONT_MUL_KERNEL(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _build.stream_ptr(a.device))
-    return out

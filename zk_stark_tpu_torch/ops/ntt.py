@@ -82,24 +82,33 @@ NTT_LONG_KERNEL = _build.Kernel(
 
 
 def pow_by_exponents(
-    acc: torch.Tensor, base_int: int, exps: torch.Tensor, nbits: int
+    acc: torch.Tensor, base_int: int, exps: torch.Tensor, nbits: int, mul=None
 ) -> torch.Tensor:
     """``acc * base^exps`` elementwise: ``acc`` [..., 8] Montgomery, ``exps``
     int64 [...] below 2^nbits.  Binary-weighted: one Montgomery product by
-    base^(2^k) per bit k, kept where bit k of the exponent is set."""
+    base^(2^k) per bit k, kept where bit k of the exponent is set.  Products
+    by ``mul`` (``limbs.mont_mul`` unless given; the plain versions' tables
+    pass ``limbs.mont_mul_plain``)."""
+    mul = mul or L.mont_mul
     b = base_int % L.P
     for k in range(nbits):
         bit = ((exps >> k) & 1).bool().unsqueeze(-1)
-        acc = torch.where(bit, L.mont_mul(acc, L.int_to_mont(b, acc.device)), acc)
+        acc = torch.where(bit, mul(acc, L.int_to_mont(b, acc.device)), acc)
         b = b * b % L.P
     return acc
 
 
+def _multiplier(plain: bool):
+    return L.mont_mul_plain if plain else L.mont_mul
+
+
 @functools.lru_cache(maxsize=None)
-def _powers_dev(base_int: int, n: int, scale_int: int, device: str) -> torch.Tensor:
+def _powers_dev(base_int: int, n: int, scale_int: int, device: str,
+                plain: bool = False) -> torch.Tensor:
     scale = L.int_to_mont(scale_int, device).expand(n, L.NLIMB)
     exps = torch.arange(n, dtype=L.DTYPE, device=device)
-    return pow_by_exponents(scale, base_int, exps, max(1, (n - 1).bit_length()))
+    return pow_by_exponents(scale, base_int, exps, max(1, (n - 1).bit_length()),
+                            _multiplier(plain))
 
 
 def powers_mont(base_int: int, n: int, device, scale_int: int = 1) -> torch.Tensor:
@@ -128,21 +137,24 @@ def _twiddles_u32(root_int: int, n: int, device: str) -> torch.Tensor:
     return _words(powers_mont(root_int, max(1, n // 2), device))
 
 
-def _four_step_twiddles(root_int: int, r: int, c: int, device: str) -> torch.Tensor:
+def _four_step_twiddles(root_int: int, r: int, c: int, device: str,
+                        plain: bool = False) -> torch.Tensor:
     """[c, r, 8] Montgomery root^(i2 * k1) (row i2 < c, column k1 < r)."""
     i2 = torch.arange(c, dtype=L.DTYPE, device=device).unsqueeze(1)
     k1 = torch.arange(r, dtype=L.DTYPE, device=device).unsqueeze(0)
     n = r * c
-    return pow_by_exponents(L.one_mont(device), root_int, (i2 * k1) % n, (n - 1).bit_length())
+    return pow_by_exponents(L.one_mont(device), root_int, (i2 * k1) % n, (n - 1).bit_length(),
+                            _multiplier(plain))
 
 
 @functools.lru_cache(maxsize=None)
-def _four_step_twiddles_u32(root_int: int, r: int, c: int, device: str) -> torch.Tensor:
+def _four_step_twiddles_u32(root_int: int, r: int, c: int, device: str,
+                            plain: bool = False) -> torch.Tensor:
     """The fused mode's table: [c, r, 4] words, row i2 multiplying the
     transform at grid index x = i2 of a fused pass.  Only this form is kept (a quarter
     of the int64 limbs': 512 MiB at 2^25 points); the plain passes unpack
-    it (:func:`_limbs`)."""
-    return _words(_four_step_twiddles(root_int, r, c, device))
+    their own copy, built with plain products (:func:`_limbs`)."""
+    return _words(_four_step_twiddles(root_int, r, c, device, plain))
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,14 +186,15 @@ def _stages_plain(x: torch.Tensor, root_int: int) -> torch.Tensor:
     log2n = n.bit_length() - 1
     batch_shape = tuple(x.shape[1:-1])
     nb = len(batch_shape)
-    powtable = powers_mont(root_int, n // 2, x.device)
+    # a table of its own, so that no kernel's product reaches the plain version
+    powtable = _powers_dev(root_int, n // 2, 1, str(x.device), plain=True)
     for s in range(log2n):
         h = 1 << s
         w = powtable[:: n >> (s + 1)]  # [h, 8]: root^(j * n / 2h)
         xr = x.reshape((n // (2 * h), 2, h) + batch_shape + (L.NLIMB,))
         even, odd = xr[:, 0], xr[:, 1]
-        t = L.mont_mul(odd, w.reshape((1, h) + (1,) * nb + (L.NLIMB,)))
-        x = torch.stack([L.add_mod(even, t), L.sub_mod(even, t)], dim=1)
+        t = L.mont_mul_plain(odd, w.reshape((1, h) + (1,) * nb + (L.NLIMB,)))
+        x = torch.stack([L.add_mod_plain(even, t), L.sub_mod_plain(even, t)], dim=1)
         x = x.reshape((n,) + batch_shape + (L.NLIMB,))
     return x
 
@@ -324,8 +337,8 @@ def _plain_pass(src: torch.Tensor, dst: torch.Tensor, p: Pass) -> None:
 
     y = ntt_plain(view(src, p.ins), p.root)  # [m, gx, gy, gz, 8]
     if p.four_step is not None:
-        ft = _limbs(_four_step_twiddles_u32(*p.four_step, str(src.device)))  # [gx, m, 8]
-        y = L.mont_mul(y, ft.transpose(0, 1)[:, :, None, None])
+        ft = _limbs(_four_step_twiddles_u32(*p.four_step, str(src.device), plain=True))
+        y = L.mont_mul_plain(y, ft.transpose(0, 1)[:, :, None, None])  # ft: [gx, m, 8]
     view(dst, p.outs).copy_(y)
 
 

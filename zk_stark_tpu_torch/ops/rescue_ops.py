@@ -151,9 +151,9 @@ def chain_pow(x: torch.Tensor, steps) -> torch.Tensor:
         elif src != NONE:
             acc = slots[src]
         for _ in range(squarings):
-            acc = L.mont_mul(acc, acc)
+            acc = L.mont_mul_plain(acc, acc)
         if mul != NONE:
-            acc = L.mont_mul(acc, slots[mul])
+            acc = L.mont_mul_plain(acc, slots[mul])
         if dst != NONE:
             slots[dst] = acc
     return acc
@@ -181,10 +181,10 @@ def _check_constants(state, mds, round_constants, n_rounds) -> int:
 
 def _mds_mul(s: torch.Tensor, mds: torch.Tensor) -> torch.Tensor:
     """[B, m, 8] -> MDS @ s: out[:, j] = sum_i mds[j, i] * s[:, i]."""
-    prod = L.mont_mul(mds, s.unsqueeze(1))  # [B, m (j), m (i), 8]
+    prod = L.mont_mul_plain(mds, s.unsqueeze(1))  # [B, m (j), m (i), 8]
     acc = prod[:, :, 0]
     for i in range(1, s.shape[1]):
-        acc = L.add_mod(acc, prod[:, :, i])
+        acc = L.add_mod_plain(acc, prod[:, :, i])
     return acc
 
 
@@ -194,12 +194,12 @@ def permutation_plain(state, mds, round_constants, n_rounds: int, alpha: int, al
     m = _check_constants(state, mds, round_constants, n_rounds)
     s = state
     for r in range(n_rounds):
-        s = L.mont_pow(s, alpha)
+        s = L.mont_pow(s, alpha, L.mont_mul_plain)
         s = _mds_mul(s, mds)
-        s = L.add_mod(s, round_constants[2 * r * m : 2 * r * m + m])
-        s = L.mont_pow_windowed(s, alpha_inv)
+        s = L.add_mod_plain(s, round_constants[2 * r * m : 2 * r * m + m])
+        s = L.mont_pow_windowed(s, alpha_inv, L.mont_mul_plain)
         s = _mds_mul(s, mds)
-        s = L.add_mod(s, round_constants[2 * r * m + m : 2 * r * m + 2 * m])
+        s = L.add_mod_plain(s, round_constants[2 * r * m + m : 2 * r * m + 2 * m])
     return s
 
 

@@ -70,14 +70,25 @@ def int32_ops_per_s() -> float:
     return sms * ISSUE_LANES_PER_SM * mhz * 1e6
 
 
-def time_ms(fn, reps: int = 20, runs: int = 5) -> float:
-    """Median over ``runs`` of the mean time of ``reps`` calls (CUDA events)."""
+#: clock cycles the card sleeps a call before a queued timing: ~200 us at
+#: the H100's ~2 GHz, more than a call's host time
+QUEUE_CYCLES = 400_000
+
+
+def time_ms(fn, reps: int = 20, runs: int = 5, queued: bool = False) -> float:
+    """Median over ``runs`` of the mean time of ``reps`` calls (CUDA events).
+
+    ``queued``: the card first sleeps while the host enqueues the calls, so
+    that they run back to back and a call whose host time exceeds its device
+    time is timed on the device all the same."""
     fn()
     torch.cuda.synchronize()
     samples = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES * reps)
         start.record()
         for _ in range(reps):
             fn()
