@@ -25,7 +25,7 @@ import hashlib, json, sys
 sys.path.insert(0, {root!r})
 from zk_stark_tpu_torch.carry import DetRng, rpsss_from_config
 import zk_stark_tpu_torch.ops.ntt_variants, zk_stark_tpu_torch.tools.ntt_variant_probe
-import zk_stark_tpu_torch.tools.kernel_shape_probe
+import zk_stark_tpu_torch.tools.kernel_shape_probe, zk_stark_tpu_torch.tools.kernel_times
 import zk_stark_tpu_torch.ops.limbs  # the limb kernels' wrappers (csrc/limbs.cu)
 meta = json.load(open({meta!r}))
 rpsss = rpsss_from_config(meta["config"], device="cpu", rng=DetRng())

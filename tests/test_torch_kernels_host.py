@@ -76,6 +76,8 @@ Fe4 sh[1 << 13];
 uint32_t rescue_smem[1 << 14];
 #include "montmul_chain.cu"
 #include "limbs.cu"
+longlong2 leaf_smem[1 + 4 * 64];
+longlong2 limbs_smem[1 << 12];
 
 extern "C" void host_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n) {
   for (int i = 0; i < n; ++i)
@@ -129,9 +131,15 @@ extern "C" void host_fold(const int64_t* cw, const int64_t* ip, const int64_t* a
   grid(half);
   for (int i = 0; i < half; ++i) { blockIdx.x = i; fold_kernel(cw, ip, ao, ti, f, c, half); }
 }
-extern "C" void host_leaf(const int64_t* canon, uint8_t* out, int n) {
-  grid(n);
-  for (int i = 0; i < n; ++i) { blockIdx.x = i; leaf_kernel(canon, out, n); }
+// blocks of `threads` leaves (at most 64), the last one partial
+extern "C" void host_leaf(const int64_t* canon, uint8_t* out, int n, int threads) {
+  const int blocks = (n + threads - 1) / threads;
+  grid(blocks);
+  gridDim.x = blocks;
+  for (int b = 0; b < blocks; ++b) {
+    blockIdx.x = b;
+    run_block(threads, [=] { leaf_kernel(canon, out, n); });
+  }
 }
 extern "C" void host_node(const uint8_t* level, uint8_t* out, int m) {
   grid(m);
@@ -158,17 +166,23 @@ extern "C" void host_chain(const int64_t* x, int64_t* y, int n, int k) {
   grid(n);
   for (int i = 0; i < n; ++i) { blockIdx.x = i; montmul_chain_kernel(x, y, n, k); }
 }
-// one thread in a grid of one block: its grid-stride loop covers all n
+// a persistent grid of `blocks` blocks of `threads` threads over tiles of
+// `tile` elements (at most 2 a thread), the plan as the launcher makes it
 extern "C" void host_limbs(int op, const int64_t* a, const int64_t* b, int64_t* out, int64_t n,
-                           int ndim, const int64_t* size, const int64_t* sa, const int64_t* sb) {
-  grid(1);
-  gridDim.x = 1; blockIdx.x = 0;
-  const limbs::Index4 s{{size[0], size[1], size[2], size[3]}};
-  const limbs::Index4 ia{{sa[0], sa[1], sa[2], sa[3]}}, ib{{sb[0], sb[1], sb[2], sb[3]}};
-  if (op == 0) limbs_mont_mul_kernel(a, b, out, n, ndim, s, ia, ib);
-  if (op == 1) limbs_add_mod_kernel(a, b, out, n, ndim, s, ia, ib);
-  if (op == 2) limbs_sub_mod_kernel(a, b, out, n, ndim, s, ia, ib);
-  if (op == 3) limbs_redc_kernel(a, out, n, ndim, s, ia);
+                           int ndim, const int64_t* size, const int64_t* sa, const int64_t* sb,
+                           const int64_t* div, int tile, int blocks, int threads) {
+  const limbs::Plan p = limbs::make_plan(n, ndim, size, sa, sb, div, tile);
+  grid(blocks);
+  gridDim.x = blocks;
+  for (int bx = 0; bx < blocks; ++bx) {
+    blockIdx.x = bx;
+    run_block(threads, [=] {
+      if (op == 0) limbs_mont_mul_kernel(a, b, out, p);
+      if (op == 1) limbs_add_mod_kernel(a, b, out, p);
+      if (op == 2) limbs_sub_mod_kernel(a, b, out, p);
+      if (op == 3) limbs_redc_kernel(a, a, out, p);
+    });
+  }
 }
 """
 
@@ -199,7 +213,9 @@ def lib(tmp_path_factory):
     lib.host_chain.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
     index = ctypes.POINTER(ctypes.c_int64)
     lib.host_limbs.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                               + [ctypes.c_int64, ctypes.c_int] + [index] * 3)
+                               + [ctypes.c_int64, ctypes.c_int] + [index] * 4
+                               + [ctypes.c_int] * 3)
+    lib.host_leaf.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
     return lib
 
 
@@ -338,53 +354,76 @@ LIMB_CASES = [(op, layout) for op in LIMB_OPS
 #: 384 = 24 x 16 elements (the outer layout's rows and columns), 64 at a
 #: time through the JAX package (the shape tests/test_torch_limbs.py compiles)
 LIMB_N, LIMB_ROWS, JAX_CHUNK = 384, 24, 64
+#: (elements, tile, blocks, threads) of the emulated launches: 384 in tiles
+#: of 6 (two of 8 slots idle, 13 tiles a block), then chip_smoke.py's tail
+#: sizes in tiles of 14 that leave a partial last tile
+LIMB_GRIDS = [(LIMB_N, 6, 5, 4)] + [(n, 14, 3, 8) for n in chip_smoke.LIMB_TAIL_SIZES]
 
 
 @pytest.fixture(scope="module")
 def limb_values():
-    """Every pair of chip_smoke.LIMB_EDGES, then seeded random values."""
+    """Every pair of chip_smoke.LIMB_EDGES, then seeded random values, as
+    many as the largest tail size."""
+    count = max(n for n, *_ in LIMB_GRIDS)
     rng = np.random.default_rng(66)
     rand = [int(h) << 64 | int(lo) for h, lo in
-            zip(rng.integers(0, 1 << 63, 2 * LIMB_N, dtype=np.uint64),
-                rng.integers(0, 1 << 63, 2 * LIMB_N, dtype=np.uint64))]
+            zip(rng.integers(0, 1 << 63, 2 * count, dtype=np.uint64),
+                rng.integers(0, 1 << 63, 2 * count, dtype=np.uint64))]
     ea, eb = chip_smoke.edge_pairs()
-    a = ea + [v % P for v in rand[: LIMB_N - len(ea)]]
-    b = eb + [v % P for v in rand[LIMB_N:2 * LIMB_N - len(eb)]]
-    return a, b
+    a = ea + [v % P for v in rand[: count - len(ea)]]
+    b = eb + [v % P for v in rand[count:2 * count - len(eb)]]
+    return (L.from_numpy(L.ints_to_limbs(a), "cpu"), L.from_numpy(L.ints_to_limbs(b), "cpu"))
+
+
+def _limb_source(lib, code, operands, tile, blocks, threads):
+    """The emulated kernel on kernel_plan's plan of ``operands``: (plan, out)."""
+    plan = L.kernel_plan(*operands)
+    out = torch.full(plan.lead + (L.NLIMB,), -1, dtype=L.DTYPE)
+    n = out.numel() // L.NLIMB
+    index = ctypes.c_int64 * 4
+    if n:
+        lib.host_limbs(code, plan.views[0].data_ptr(), plan.views[-1].data_ptr(), out.data_ptr(),
+                       n, plan.ndim, index(*plan.sizes), index(*plan.strides[0]),
+                       index(*plan.strides[-1]), index(*plan.divisors), tile, blocks, threads)
+    return plan, out
 
 
 @pytest.mark.parametrize("op, layout", LIMB_CASES, ids=[f"{o}-{l}" for o, l in LIMB_CASES])
 def test_limb_kernel_source(lib, limb_values, op, layout):
     """limbs.cu's four entry points in every layout of chip_smoke.py's limb
-    phase, read through the sizes and strides kernel_plan hands the launch
-    (broadcast dimensions of stride 0, strided slices, four dimensions that
-    do not merge, a limb-transposed operand copied first), against the
-    plain versions; the full layout also
+    phase, read through kernel_plan's plan (broadcast dimensions of stride
+    0, strided slices, four dimensions that do not merge and their
+    reciprocals, a limb-transposed operand and one that starts mid-element,
+    each copied once), against the plain versions: blocks of 4 and 8
+    threads walking several tiles each, with idle slots and partial last
+    tiles (384, 1, 31, 257 and 4097 elements); at 384 the full layout also
     against the JAX package (64 elements a call) and integers."""
     code, plain, jax_fn, host = LIMB_OPS[op]
-    a = L.from_numpy(L.ints_to_limbs(limb_values[0]), "cpu")
-    b = L.from_numpy(L.ints_to_limbs(limb_values[1]), "cpu")
-    operands = chip_smoke.limb_operands(layout, a, b, LIMB_ROWS)[: 1 if op == "redc" else 2]
-    copies = L.copies
-    lead, ndim, sizes, strides, views = L.kernel_plan(*operands)
-    assert L.copies - copies == (layout == "transposed")
-    assert ndim == {"outer": 2, "permuted": 4}.get(layout, 1)
-    assert sizes[:L.KERNEL_DIMS - ndim] == [1] * (L.KERNEL_DIMS - ndim)
-    out = torch.full(lead + (L.NLIMB,), -1, dtype=L.DTYPE)
-    n = out.numel() // L.NLIMB
-    index = ctypes.c_int64 * 4
-    lib.host_limbs(code, views[0].data_ptr(), views[-1].data_ptr(), out.data_ptr(), n, ndim,
-                   index(*sizes), index(*strides[0]), index(*strides[-1]))
-    assert n == LIMB_N
-    assert torch.equal(out, plain(*operands))
-    if layout == "full":
-        ints = [L.limbs_to_ints(t) for t in operands]
-        assert [int(v) for v in L.limbs_to_ints(out)] == [host(*vs) for vs in zip(*ints)]
-        if jax_fn is not None:
-            for lo in range(0, n, JAX_CHUNK):
-                chunk = [np.asarray(t[lo:lo + JAX_CHUNK]).astype(np.uint32) for t in operands]
-                assert np.array_equal(out[lo:lo + JAX_CHUNK].numpy().astype(np.uint32),
-                                      np.asarray(jax_fn(*chunk)))
+    arity = 1 if op == "redc" else 2
+    for n, tile, blocks, threads in LIMB_GRIDS:
+        a, b = limb_values[0][:n], limb_values[1][:n]
+        rows = LIMB_ROWS if n == LIMB_N else 1 << (n.bit_length() - 1) // 2
+        operands = chip_smoke.limb_operands(layout, a, b, rows)[:arity]
+        copies = L.copies
+        plan, out = _limb_source(lib, code, operands, tile, blocks, threads)
+        # one element's transposed limbs are adjacent all the same
+        assert L.copies - copies == (layout in chip_smoke.COPIED_LAYOUTS
+                                     and (n > 1 or layout == "misaligned"))
+        assert plan.sizes[:L.KERNEL_DIMS - plan.ndim] == [1] * (L.KERNEL_DIMS - plan.ndim)
+        assert torch.equal(out, plain(*operands)), (n, layout)
+        if n != LIMB_N:
+            continue
+        assert out.numel() // L.NLIMB == LIMB_N
+        assert plan.ndim == {"outer": 2, "permuted": 4}.get(layout, 1)
+        if layout == "full":
+            ints = [L.limbs_to_ints(t) for t in operands]
+            assert [int(v) for v in L.limbs_to_ints(out)] == [host(*vs) for vs in zip(*ints)]
+            if jax_fn is not None:
+                for lo in range(0, LIMB_N, JAX_CHUNK):
+                    chunk = [np.asarray(t[lo:lo + JAX_CHUNK]).astype(np.uint32)
+                             for t in operands]
+                    assert np.array_equal(out[lo:lo + JAX_CHUNK].numpy().astype(np.uint32),
+                                          np.asarray(jax_fn(*chunk)))
 
 
 @pytest.mark.parametrize("which", V.VARIANTS)
@@ -414,19 +453,25 @@ def test_fold_kernel_source(lib):
     assert torch.equal(folded, want_f) and torch.equal(canon, want_c)
 
 
-def test_leaf_and_node_kernel_sources(lib):
-    vals = [0, 1, 9, 10, 99, 100, P - 1, 10**38, 10**38 - 1, 10**37, (1 << 128) - 1]
+@pytest.mark.parametrize("threads", [1, 7, 64])
+def test_leaf_and_node_kernel_sources(lib, threads):
+    """The leaf kernel on chip_smoke.py's decimal-length values (one of
+    every length from 1 to 39 digits and every group boundary) and seeded
+    random elements, in blocks of 1, 7 and 64 threads (a partial last
+    block), against hashlib and the plain version; the node kernel on the
+    digests."""
+    vals = chip_smoke.decimal_values() + [(1 << 128) - 1]
     vals += [int(v) for v in L.mont_to_ints(_rand_mont(4, 117))]
     canon = L.from_numpy(L.ints_to_limbs(vals), "cpu")
     leaves = torch.empty((len(vals), 64), dtype=torch.uint8)
-    lib.host_leaf(*_ptrs(canon, leaves), len(vals))
+    lib.host_leaf(*_ptrs(canon, leaves), len(vals), threads)
     assert torch.equal(leaves, B.leaf_digests_plain(canon))
-    assert leaves[7].numpy().tobytes() == hashlib.blake2b(
-        str(vals[7]).encode(), digest_size=64
-    ).digest()
-    parents = torch.empty((len(vals) // 2, 64), dtype=torch.uint8)
-    lib.host_node(*_ptrs(leaves, parents), len(vals) // 2)
-    assert torch.equal(parents, B.node_digests_plain(leaves))
+    assert [bytes(row) for row in leaves.numpy()] == [
+        hashlib.blake2b(str(v).encode(), digest_size=64).digest() for v in vals]
+    m = len(vals) // 2
+    parents = torch.empty((m, 64), dtype=torch.uint8)
+    lib.host_node(*_ptrs(leaves, parents), m)
+    assert torch.equal(parents, B.node_digests_plain(leaves[:2 * m]))
 
 
 def test_compress_kernel_source(lib):

@@ -184,21 +184,85 @@ def test_limb_kernels_name_their_counterparts():
 def test_kernel_plan_collapses_and_copies(operands):
     """kernel_plan merges what it can (a contiguous operand against a
     broadcast element is one dimension), keeps [r, 1] x [1, c] as two, and
-    copies an operand whose limbs are not adjacent, or all of them when
-    more than KERNEL_DIMS dimensions remain."""
+    copies an operand whose limbs are not adjacent, one that starts off the
+    16-byte grid, or all of them when more than KERNEL_DIMS dimensions
+    remain."""
     a = _port(operands[0])
-    _, ndim, sizes, strides, _ = L.kernel_plan(a.reshape(8, 8, L.NLIMB), a[0])
-    assert (ndim, sizes, strides) == (1, [1, 1, 1, 64], [[0, 0, 0, 8], [0, 0, 0, 0]])
-    _, ndim, sizes, strides, _ = L.kernel_plan(a[:4].unsqueeze(1), a[:16].unsqueeze(0))
-    assert (ndim, sizes, strides) == (2, [1, 1, 4, 16], [[0, 0, 8, 0], [0, 0, 0, 8]])
+    plan = L.kernel_plan(a.reshape(8, 8, L.NLIMB), a[0])
+    assert (plan.ndim, plan.sizes, plan.strides) == (1, [1, 1, 1, 64], [[0, 0, 0, 8], [0, 0, 0, 0]])
+    assert plan.divisors == [0, 0, 0, 0]
+    plan = L.kernel_plan(a[:4].unsqueeze(1), a[:16].unsqueeze(0))
+    assert (plan.ndim, plan.sizes, plan.strides) == (2, [1, 1, 4, 16], [[0, 0, 8, 0], [0, 0, 0, 8]])
+    assert plan.divisors == [0, 0, 0, L.divider(16)]
     copies = L.copies
     L.kernel_plan(a.t().contiguous().t(), a)
     assert L.copies == copies + 1
     # [2, 1, 2, 1, 2] against [1, 2, 1, 2, 1]: five dimensions, none mergeable
-    lead, ndim, sizes, _, views = L.kernel_plan(a[:8].reshape(2, 1, 2, 1, 2, L.NLIMB),
-                                                a[:4].reshape(1, 2, 1, 2, 1, L.NLIMB))
-    assert L.copies == copies + 3 and (ndim, sizes[-1], math.prod(lead)) == (1, 32, 32)
-    assert all(v.is_contiguous() for v in views)
+    plan = L.kernel_plan(a[:8].reshape(2, 1, 2, 1, 2, L.NLIMB),
+                         a[:4].reshape(1, 2, 1, 2, 1, L.NLIMB))
+    assert L.copies == copies + 3 and (plan.ndim, plan.sizes[-1], math.prod(plan.lead)) == (1, 32, 32)
+    assert all(v.is_contiguous() for v in plan.views)
+    # a view one limb into its buffer, and one whose element stride is odd
+    buf = torch.zeros(64 * L.NLIMB + 1, dtype=L.DTYPE)
+    shifted = buf[1:].view(64, L.NLIMB)
+    shifted.copy_(a)
+    wide = torch.zeros(64, L.NLIMB + 1, dtype=L.DTYPE)[:, :L.NLIMB]
+    wide.copy_(a)
+    for view in (shifted, wide):
+        copies = L.copies
+        plan = L.kernel_plan(view, a)
+        assert L.copies == copies + 1
+        assert plan.views[0].data_ptr() % 16 == 0 and plan.views[0].is_contiguous()
+        assert torch.equal(plan.views[0], a) and plan.views[1] is a
+
+
+def _kernel_offsets(plan, i: np.ndarray) -> list:
+    """csrc/limbs.cu's ``offsets``: each operand's element offsets (in limbs)
+    of output elements i, dividing by each dimension's size through the
+    plan's reciprocals in 32-bit arithmetic."""
+    offs = [np.zeros_like(i) for _ in plan.strides]
+    for d in range(L.KERNEL_DIMS - 1, L.KERNEL_DIMS - plan.ndim, -1):
+        magic, shift = plan.divisors[d] & 0xFFFFFFFF, plan.divisors[d] >> 32
+        q = ((((i * magic) >> 32) + i) & 0xFFFFFFFF) >> shift
+        r = i - q * plan.sizes[d]
+        offs = [o + r * s[d] for o, s in zip(offs, plan.strides)]
+        i = q
+    outer = L.KERNEL_DIMS - plan.ndim
+    return [o + i * s[outer] for o, s in zip(offs, plan.strides)]
+
+
+@pytest.mark.parametrize("n", [384, 4097])
+def test_kernel_plan_gives_the_index_plan(n):
+    """On every layout of chip_smoke.py's limb phase, the elements that
+    limbs.cu's index arithmetic reaches through kernel_plan's sizes, element
+    strides and reciprocals are the broadcast operands' elements, output
+    element for output element; and each reciprocal divides exactly."""
+    import chip_smoke
+
+    rng = np.random.default_rng(n)
+    a, b = (torch.from_numpy(rng.integers(0, 1 << 16, (n, L.NLIMB))) for _ in range(2))
+    rows = 24 if n == 384 else 64
+    for layout in chip_smoke.LIMB_LAYOUTS:
+        operands = chip_smoke.limb_operands(layout, a, b, rows)
+        plan = L.kernel_plan(*operands)
+        count = math.prod(plan.lead)
+        offsets = _kernel_offsets(plan, np.arange(count, dtype=np.int64))
+        for op, view, off in zip(operands, plan.views, offsets):
+            want = op.expand(plan.lead + (L.NLIMB,)).reshape(count, L.NLIMB)
+            flat = view.as_strided((int(off.max(initial=0)) + L.NLIMB,), (1,))
+            got = flat[torch.from_numpy(off)[:, None] + torch.arange(L.NLIMB)]
+            assert torch.equal(got, want), layout
+        assert plan.divisors[:L.KERNEL_DIMS - plan.ndim + 1] == [0] * (L.KERNEL_DIMS - plan.ndim + 1)
+        assert plan.divisors[L.KERNEL_DIMS - plan.ndim + 1:] == [
+            L.divider(d) for d in plan.sizes[L.KERNEL_DIMS - plan.ndim + 1:]]
+    ds = np.concatenate([np.arange(1, 600), rng.integers(1, 1 << 31, 400), [(1 << 31) - 1]])
+    xs = np.concatenate([np.arange(0, 5000), rng.integers(0, 1 << 31, 5000),
+                         [(1 << 31) - 1]]).astype(np.uint64)  # i * magic < 2^63
+    for d in ds.tolist():
+        magic, shift = L.divider(d) & 0xFFFFFFFF, L.divider(d) >> 32
+        assert magic < 1 << 32
+        q = (((xs * np.uint64(magic)) >> np.uint64(32)) + xs) >> np.uint64(shift)
+        assert np.array_equal(q, xs // np.uint64(d)), d
 
 
 def test_plain_versions_reach_no_dispatching_name(monkeypatch, operands):

@@ -30,20 +30,34 @@
 // Bound: operations.  A compression is ~2.9k 64-bit integer ops (96 G
 // mixes) for at most 128 bytes in and 64 out; a 64-bit add or rotate is
 // several 32-bit instructions on the SM.  One thread per digest gives the
-// card n (or n/2) independent compressions; at the signature's 4096 leaves
-// that is 32 blocks of 128, which fills a quarter of the SMs.  At the
-// chain's 2^20 leaves (2^19 parents) the leaf takes 0.268 ms against a
-// 0.104 ms bound and the node 0.075 ms against 0.042 ms (H100 80GB HBM3,
-// 700 W, chip_smoke.py, bound at the SM issue rate).  The compress
-// interface carries every 32-bit half in an int64 (the JAX package's word
-// planes in the port's limb dtype): 392 bytes a message, so bytes bound it
-// where the leaf and node are bound by operations.
+// card n (or n/2) independent compressions.  The compress interface
+// carries every 32-bit half in an int64 (the JAX package's word planes in
+// the port's limb dtype): 392 bytes a message, so bytes bound it where the
+// leaf and node are bound by operations.
+//
+// The leaf (redesigned for the H100): a block of kLeafThreads elements
+// comes into shared memory as one bulk copy and its digests leave as one
+// (csrc/tiles.cuh), so device memory sees whole lines in both directions.
+// A thread turns its element into the message in registers only: the
+// base-10^8 groups by multiply-high with a reciprocal (10 steps of 64 by
+// 32 bits, each starting at the highest word the value's size leaves
+// nonzero, where a full long division takes 20), each group's 8 digits as 8
+// ASCII bytes at fixed places (two 4-digit words, each a few multiplies),
+// and the left alignment of the 40-byte string as a byte shift made of
+// selects and funnel shifts.  The compression then knows at compile time
+// that message words 5-15 are zero (a decimal string of a value below
+// 2^128 has at most 39 bytes), so their additions fold away.
 
 #include <stdint.h>
 
 #include "field.cuh"
+#include "tiles.cuh"
 
 namespace {
+
+// elements a leaf block hashes (one a thread): 64 spreads a sign's 4096
+// leaves over 64 SMs
+constexpr int kLeafThreads = 64;
 
 __device__ __forceinline__ uint64_t rotr64(uint64_t x, int r) {
     return (x >> r) | (x << (64 - r));
@@ -74,19 +88,24 @@ __device__ __forceinline__ uint64_t rotr64(uint64_t x, int r) {
 
 #define B2B_ROUND(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, s13, s14, s15) \
     do {                                                   \
-        B2B_G(v0, v4, v8, v12, m[s0], m[s1]);              \
-        B2B_G(v1, v5, v9, v13, m[s2], m[s3]);              \
-        B2B_G(v2, v6, v10, v14, m[s4], m[s5]);             \
-        B2B_G(v3, v7, v11, v15, m[s6], m[s7]);             \
-        B2B_G(v0, v5, v10, v15, m[s8], m[s9]);             \
-        B2B_G(v1, v6, v11, v12, m[s10], m[s11]);           \
-        B2B_G(v2, v7, v8, v13, m[s12], m[s13]);            \
-        B2B_G(v3, v4, v9, v14, m[s14], m[s15]);            \
+        B2B_G(v0, v4, v8, v12, B2B_M(s0), B2B_M(s1));      \
+        B2B_G(v1, v5, v9, v13, B2B_M(s2), B2B_M(s3));      \
+        B2B_G(v2, v6, v10, v14, B2B_M(s4), B2B_M(s5));     \
+        B2B_G(v3, v7, v11, v15, B2B_M(s6), B2B_M(s7));     \
+        B2B_G(v0, v5, v10, v15, B2B_M(s8), B2B_M(s9));     \
+        B2B_G(v1, v6, v11, v12, B2B_M(s10), B2B_M(s11));   \
+        B2B_G(v2, v7, v8, v13, B2B_M(s12), B2B_M(s13));    \
+        B2B_G(v3, v4, v9, v14, B2B_M(s14), B2B_M(s15));    \
     } while (0)
 
-// One final-block compression of the 16-word message m with byte count t;
-// writes the 8 digest words to out.
-__device__ __forceinline__ void compress_final(const uint64_t m[16], uint64_t t,
+// message word i of a message whose words from kWords on are zero: a
+// literal index, so the zero words fold into the additions
+#define B2B_M(i) ((i) < kWords ? m[(i) < kWords ? (i) : 0] : 0ull)
+
+// One final-block compression of the message m (words 0 .. kWords-1; the
+// rest zero) with byte count t; writes the 8 digest words to out.
+template <int kWords>
+__device__ __forceinline__ void compress_final(const uint64_t (&m)[kWords], uint64_t t,
                                                uint64_t out[8]) {
     uint64_t v0 = B2B_H0, v1 = B2B_IV1, v2 = B2B_IV2, v3 = B2B_IV3;
     uint64_t v4 = B2B_IV4, v5 = B2B_IV5, v6 = B2B_IV6, v7 = B2B_IV7;
@@ -116,59 +135,166 @@ __device__ __forceinline__ void compress_final(const uint64_t m[16], uint64_t t,
     out[7] = B2B_IV7 ^ v7 ^ v15;
 }
 
+// the high half of a 64 x 64-bit product
+__device__ __forceinline__ uint64_t umulhi64(uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+    return __umul64hi(a, b);
+#else
+    return (uint64_t)(((unsigned __int128)a * b) >> 64);
+#endif
+}
+
+__device__ __forceinline__ uint32_t umulhi32(uint32_t a, uint32_t b) {
+#ifdef __CUDA_ARCH__
+    return __umulhi(a, b);
+#else
+    return (uint32_t)(((uint64_t)a * b) >> 32);
+#endif
+}
+
+// bits 8b .. 8b+31 of hi:lo (b in 0..3)
+__device__ __forceinline__ uint32_t funnel_bytes(uint32_t lo, uint32_t hi, int b) {
+#ifdef __CUDA_ARCH__
+    return __funnelshift_r(lo, hi, 8 * b);
+#else
+    return (uint32_t)((((uint64_t)hi << 32) | lo) >> (8 * b));
+#endif
+}
+
+__device__ __forceinline__ int ctz64(uint64_t x) {
+#ifdef __CUDA_ARCH__
+    return __ffsll((long long)x) - 1;
+#else
+    return __builtin_ctzll(x);
+#endif
+}
+
+// (rem * 2^32 + w) / 10^8 into w; returns the remainder (rem < 10^8).  The
+// quotient is a multiply-high by ceil(2^90 / 10^8): exact for numerators
+// below 2^90 / 10^8 > 2^63, and these are below 10^8 * 2^32 < 2^59.
+__device__ __forceinline__ uint32_t div_1e8(uint32_t rem, uint32_t& w) {
+    const uint64_t cur = ((uint64_t)rem << 32) | w;
+    const uint32_t q = (uint32_t)(umulhi64(cur, 12379400392853802749ull) >> 26);
+    w = q;
+    return (uint32_t)cur - q * 100000000u;
+}
+
+// x < 10^4 -> its 4 decimal digits as bytes 0-9, most significant in byte 0
+__device__ __forceinline__ uint32_t digits4(uint32_t x) {
+    const uint32_t h = (x * 5243u) >> 19;                 // x / 100 (exact below 43,699)
+    const uint32_t v = h | ((x - 100u * h) << 16);        // [x / 100, x % 100], 16-bit lanes
+    const uint32_t t = ((v * 103u) >> 10) & 0x000F000Fu;  // each lane / 10 (exact below 179)
+    return t | ((v - 10u * t) << 8);
+}
+
+// g < 10^8 -> its 8 decimal digits as bytes 0-9, most significant in byte 0
+__device__ __forceinline__ uint64_t digits8(uint32_t g) {
+    const uint32_t hi = umulhi32(g, 3518437209u) >> 13;  // g / 10^4
+    return digits4(hi) | ((uint64_t)digits4(g - 10000u * hi) << 32);
+}
+
+// s[0..9] <- s[B..B+9] (zero past s[10]) where bit B of q is set
+template <int B>
+__device__ __forceinline__ void drop_words(uint32_t (&s)[11], int q) {
+#pragma unroll
+    for (int j = 0; j < 10; ++j) {
+        const uint32_t up = j + B < 11 ? s[(j + B) % 11] : 0u;
+        s[j] = (q & B) ? up : s[j];
+    }
+}
+
 // Decimal string of a canonical element (4 words of 32 bits, < 2^128),
 // left-aligned into message words m[0..4], little-endian bytes; returns the
-// digit count (1 for the value 0).
-__device__ __forceinline__ int decimal_message(zk::Fe v, uint64_t m[16]) {
-    // five base-10^9 groups (10^45 > 2^128), least significant first
-    uint32_t groups[5];
+// digit count (1 for the value 0).  Registers only: every array index is a
+// literal once the loops unroll.
+__device__ __forceinline__ int decimal_message(const zk::Fe& v, uint64_t (&m)[5]) {
+    // base-10^8 groups, least significant first.  A value below 2^128 is
+    // below 2^101.4 after one division by 10^8, 2^74.8 after two, 2^48.2
+    // after three and 2^21.6 after four, so each division starts at the
+    // highest word that can still be nonzero, with that word as remainder.
+    uint32_t w0 = v.w[0], w1 = v.w[1], w2 = v.w[2], w3 = v.w[3];
+    uint32_t g[5];
+    uint32_t r = div_1e8(0, w3);
+    r = div_1e8(r, w2);
+    r = div_1e8(r, w1);
+    g[0] = div_1e8(r, w0);  // w3 < 2^5.4 now
+    r = div_1e8(w3, w2);
+    r = div_1e8(r, w1);
+    g[1] = div_1e8(r, w0);  // w2 < 2^10.8
+    r = div_1e8(w2, w1);
+    g[2] = div_1e8(r, w0);  // w1 < 2^16.2
+    g[3] = div_1e8(w1, w0);
+    g[4] = w0;  // < 2^21.6 < 10^8
+    // the 40-byte zero-padded string: digit word j holds group 4 - j
+    uint64_t d[5];
 #pragma unroll
-    for (int g = 0; g < 5; ++g) {
-        uint64_t rem = 0;
+    for (int j = 0; j < 5; ++j) d[j] = digits8(g[4 - j]);
+    // leading zero digits to drop: the first nonzero digit byte (39 for 0,
+    // whose string is the last "0")
+    int k = 39;
 #pragma unroll
-        for (int k = 3; k >= 0; --k) {
-            const uint64_t cur = (rem << 32) | v.w[k];
-            v.w[k] = (uint32_t)(cur / 1000000000ULL);
-            rem = cur % 1000000000ULL;
-        }
-        groups[g] = (uint32_t)rem;
+    for (int j = 4; j >= 0; --j) {
+        if (d[j] != 0) k = 8 * j + (ctz64(d[j]) >> 3);
     }
-    uint8_t digits[45];  // least significant first
-    int len = 1;
+    // the string as 10 words of 32 bits (and a zero word past its end),
+    // shifted down by k bytes: whole words by a barrel of selects, then the
+    // remaining bytes by funnel shifts
+    uint32_t s[11];
 #pragma unroll
-    for (int g = 0; g < 5; ++g) {
-        uint32_t x = groups[g];
-#pragma unroll
-        for (int q = 0; q < 9; ++q) {
-            const int idx = 9 * g + q;
-            digits[idx] = (uint8_t)(x % 10u);
-            x /= 10u;
-            if (digits[idx] != 0) len = idx + 1;
-        }
+    for (int j = 0; j < 5; ++j) {
+        const uint64_t a = d[j] + 0x3030303030303030ull;
+        s[2 * j] = (uint32_t)a;
+        s[2 * j + 1] = (uint32_t)(a >> 32);
     }
+    s[10] = 0;
+    drop_words<8>(s, k >> 2);
+    drop_words<4>(s, k >> 2);
+    drop_words<2>(s, k >> 2);
+    drop_words<1>(s, k >> 2);
 #pragma unroll
-    for (int w = 0; w < 16; ++w) m[w] = 0;
-    for (int j = 0; j < len; ++j) {
-        const uint64_t byte = (uint64_t)('0' + digits[len - 1 - j]);
-        m[j >> 3] |= byte << (8 * (j & 7));
+    for (int j = 0; j < 5; ++j) {
+        m[j] = funnel_bytes(s[2 * j], s[2 * j + 1], k & 3)
+             | ((uint64_t)funnel_bytes(s[2 * j + 1], s[2 * j + 2], k & 3) << 32);
     }
-    return len;
+    return 40 - k;
 }
 
 }  // namespace
 
-// canon: [n, 8] int64 limbs (canonical, not Montgomery); out: [n, 64] bytes.
-extern "C" __global__ void leaf_kernel(const int64_t* __restrict__ canon,
-                                       uint8_t* __restrict__ out, int n) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    uint64_t m[16];
-    const int len = decimal_message(zk::load_fe(canon + 8 * (size_t)i), m);
-    uint64_t h[8];
-    compress_final(m, (uint64_t)len, h);
-    uint64_t* o = reinterpret_cast<uint64_t*>(out + 64 * (size_t)i);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = h[k];
+// canon: [n, 8] int64 limbs (canonical, not Montgomery), 16-byte aligned;
+// out: [n, 64] bytes.  A block hashes blockDim.x elements, one a thread:
+// their limbs come in as one bulk copy, each digest goes back over its
+// element's place in the tile, and the tile leaves as one bulk copy.
+extern "C" __global__ void __launch_bounds__(kLeafThreads) leaf_kernel(
+    const int64_t* __restrict__ canon, uint8_t* __restrict__ out, int n) {
+    extern __shared__ longlong2 leaf_smem[];
+    uint64_t* bar = reinterpret_cast<uint64_t*>(leaf_smem);
+    int64_t* tile = reinterpret_cast<int64_t*>(leaf_smem + 1);
+    const int e = threadIdx.x;
+    const int base = blockIdx.x * blockDim.x;
+    const int count = n - base < (int)blockDim.x ? n - base : (int)blockDim.x;
+    const uint32_t bytes = (uint32_t)count * tiles::kRecordBytes;
+    if (e == 0) tiles::bar_init(bar);
+    __syncthreads();
+    if (e == 0) {
+        tiles::bar_expect(bar, bytes);
+        tiles::load_async(tile, canon + 8 * (size_t)base, bytes, bar);
+    }
+    tiles::bar_wait(bar, 0);
+    if (e < count) {
+        const int rot = tiles::rotation(e);
+        uint64_t m[5];
+        const int len = decimal_message(tiles::load_fe<false>(tile + 8 * e, rot), m);
+        uint64_t h[8];
+        compress_final<5>(m, (uint64_t)len, h);
+        tiles::store_words(tile + 8 * e, h, rot);
+    }
+    tiles::fence_async();
+    __syncthreads();
+    if (e == 0) {
+        tiles::store_async(out + 64 * (size_t)base, tile, bytes);
+        tiles::store_wait_all();
+    }
 }
 
 // level: [2m, 64] bytes in natural order; out: [m, 64] bytes.
@@ -181,7 +307,7 @@ extern "C" __global__ void node_kernel(const uint8_t* __restrict__ level,
 #pragma unroll
     for (int k = 0; k < 16; ++k) m[k] = in[k];
     uint64_t h[8];
-    compress_final(m, 128ULL, h);
+    compress_final<16>(m, 128ULL, h);
     uint64_t* o = reinterpret_cast<uint64_t*>(out + 64 * (size_t)i);
 #pragma unroll
     for (int k = 0; k < 8; ++k) o[k] = h[k];
@@ -203,7 +329,7 @@ extern "C" __global__ void compress_kernel(const int64_t* __restrict__ mh,
         m[k] = ((uint64_t)(uint32_t)mh[at] << 32) | (uint32_t)ml[at];
     }
     uint64_t h[8];
-    compress_final(m, (uint64_t)t[i], h);
+    compress_final<16>(m, (uint64_t)t[i], h);
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
         const size_t at = (size_t)k * n + i;
@@ -225,9 +351,9 @@ extern "C" int compress_launch(const void* mh, const void* ml, const void* t, vo
 }
 
 extern "C" int leaf_launch(const void* canon, void* out, int n, void* stream) {
-    const int threads = 128;
-    leaf_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)canon, (uint8_t*)out, n);
+    const int smem = (int)sizeof(longlong2) + kLeafThreads * tiles::kRecordBytes;
+    leaf_kernel<<<(n + kLeafThreads - 1) / kLeafThreads, kLeafThreads, smem,
+                  (cudaStream_t)stream>>>((const int64_t*)canon, (uint8_t*)out, n);
     return (int)cudaGetLastError();
 }
 

@@ -12,11 +12,12 @@ here in ``int64`` planes [8, n].
 
 On CUDA tensors :func:`leaf_digests`, :func:`node_digests` and
 :func:`compress_words` launch the kernels of ``csrc/blake2b.cu`` (one
-thread per digest); on CPU tensors they run the plain versions below,
-which carry each 64-bit word as (hi, lo) 32-bit halves in ``int64``
-(PyTorch's ``int64`` right shift is arithmetic and its CPU backend has no
-``uint64``/``uint32`` kernels, so a direct 64-bit port would rotate
-wrongly).
+thread per digest; the leaf's rows arrive by bulk copy, so an input that
+starts off the 16-byte grid is copied first); on CPU tensors they run
+the plain versions below, which carry each 64-bit word as (hi, lo)
+32-bit halves in ``int64`` (PyTorch's ``int64`` right shift is
+arithmetic and its CPU backend has no ``uint64``/``uint32`` kernels, so
+a direct 64-bit port would rotate wrongly).
 """
 
 from __future__ import annotations
@@ -243,6 +244,8 @@ def node_digests_plain(level: torch.Tensor) -> torch.Tensor:
 def leaf_kernel(canon: torch.Tensor) -> torch.Tensor:
     n = canon.shape[0]
     _build.check_cuda_tensor(canon, "leaf canon", L.DTYPE, (n, L.NLIMB))
+    if canon.data_ptr() & 15:  # the kernel's bulk copy reads 16-byte aligned rows
+        canon = canon.clone()
     out = torch.empty((n, 64), dtype=torch.uint8, device=canon.device)
     if n:
         LEAF_KERNEL(canon.data_ptr(), out.data_ptr(), n, _build.stream_ptr(canon.device))

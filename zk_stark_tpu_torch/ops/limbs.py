@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -257,10 +258,12 @@ def redc_plain(a: torch.Tensor) -> torch.Tensor:
 # The kernel (csrc/limbs.cu) and the dispatching names
 # -----------------------------------------------------------------------------
 
-#: leading dimensions the kernel indexes (``limbs::Index4``)
+#: leading dimensions the kernel indexes (``limbs::Plan``)
 KERNEL_DIMS = 4
+#: the kernel's element indices are 32-bit
+MAX_KERNEL_ELEMENTS = (1 << 31) - 1
 _INDEX = [ctypes.c_int64, ctypes.c_int] + [ctypes.c_int64] * 4
-_BINARY = [ctypes.c_void_p] * 3 + _INDEX + [ctypes.c_int64] * 8 + [ctypes.c_void_p]
+_BINARY = [ctypes.c_void_p] * 3 + _INDEX + [ctypes.c_int64] * 12 + [ctypes.c_void_p]
 MONT_MUL_KERNEL = _build.Kernel(
     "limbs", "limbs_mont_mul_launch", _BINARY,
     replaces="zk_stark_tpu/ops/limbs.py:181 (mont_mul, XLA-fused)", name="limbs_mont_mul",
@@ -274,15 +277,50 @@ SUB_MOD_KERNEL = _build.Kernel(
     replaces="zk_stark_tpu/ops/limbs.py:154 (sub_mod, XLA-fused)", name="limbs_sub_mod",
 )
 REDC_KERNEL = _build.Kernel(
-    "limbs", "limbs_redc_launch", [ctypes.c_void_p] * 2 + _INDEX + [ctypes.c_int64] * 4
+    "limbs", "limbs_redc_launch", [ctypes.c_void_p] * 2 + _INDEX + [ctypes.c_int64] * 8
     + [ctypes.c_void_p],
     replaces="zk_stark_tpu/ops/limbs.py:235 (from_mont, XLA-fused)", name="limbs_redc",
 )
 KERNELS = (MONT_MUL_KERNEL, ADD_MOD_KERNEL, SUB_MOD_KERNEL, REDC_KERNEL)
 
 #: operands :func:`kernel_plan` copied to a contiguous layout (a limb stride
-#: other than 1, or more than KERNEL_DIMS leading dimensions after collapsing)
+#: other than 1, a start or an element stride off the 16-byte grid, or more
+#: than KERNEL_DIMS leading dimensions after collapsing)
 copies = 0
+
+
+@functools.lru_cache(maxsize=None)
+def divider(d: int) -> int:
+    """The reciprocal by which the kernel divides a 32-bit index i < 2^31 by
+    d (1 <= d < 2^31), packed as magic | shift << 32: i // d is
+    (umulhi(i, magic) + i) >> shift, with shift the least s of 2^s >= d and
+    magic = 2^32 (2^shift - d) // d + 1 (below 2^32)."""
+    shift = (d - 1).bit_length()
+    magic = ((1 << 32) * ((1 << shift) - d)) // d + 1
+    return magic | shift << 32
+
+
+class Plan(NamedTuple):
+    """How ``csrc/limbs.cu`` reads a call's operands (``limbs::Plan``)."""
+
+    #: the output's leading shape
+    lead: tuple
+    #: leading dimensions left after collapsing (1 to KERNEL_DIMS)
+    ndim: int
+    #: their sizes, padded to KERNEL_DIMS with 1 in front (innermost last)
+    sizes: list
+    #: each operand's element strides (in limbs) over those dimensions; 0
+    #: where it is broadcast
+    strides: list
+    #: the operands whose pointers the kernel takes (copies where needed)
+    views: list
+    #: each dimension's :func:`divider` (0 for the outermost, which the
+    #: kernel does not divide by)
+    divisors: list
+
+
+#: the plan's divisors of a call of one collapsed dimension
+_NO_DIVISORS = [0] * KERNEL_DIMS
 
 
 def _collapse(lead, strides):
@@ -326,27 +364,34 @@ def _lead_strides(t: torch.Tensor, nd: int) -> list:
     ]
 
 
-def kernel_plan(*operands: torch.Tensor):
+def _vector_ready(t: torch.Tensor) -> bool:
+    """Whether the kernel can read ``t``'s elements as 16-byte vectors: limbs
+    adjacent, the start and every element stride on the 16-byte grid."""
+    return (t.stride(-1) == 1 and not t.data_ptr() & 15
+            and not any(s & 1 for n, s in zip(t.shape[:-1], t.stride()[:-1]) if n != 1))
+
+
+def kernel_plan(*operands: torch.Tensor) -> Plan:
     """How ``csrc/limbs.cu`` reads ``operands`` (one or two int64 [..., 8]
-    tensors, any device): (the output's leading shape, ndim, the KERNEL_DIMS
-    sizes, each operand's KERNEL_DIMS element strides, the operands whose
-    pointers it takes).  Broadcast dimensions get stride 0; an operand with
-    a limb stride other than 1 is copied first, and all of them are, in the
-    broadcast shape, when more than KERNEL_DIMS dimensions remain.  Plain
-    integer work on shapes and strides: it is the host cost of a call."""
+    tensors, any device).  Broadcast dimensions get stride 0; an operand
+    the kernel cannot read as 16-byte vectors (:func:`_vector_ready`) is
+    copied first, and all of them are, in the broadcast shape, when more
+    than KERNEL_DIMS dimensions remain.  Plain integer work on shapes and
+    strides: it is the host cost of a call."""
     global copies
     a = operands[0]
-    if a.is_contiguous() and all(
-        (t.shape == a.shape and t.is_contiguous()) or (t.dim() == 1 and t.stride(0) == 1)
+    if a.is_contiguous() and not a.data_ptr() & 15 and all(
+        ((t.shape == a.shape and t.is_contiguous()) or (t.dim() == 1 and t.stride(0) == 1))
+        and not t.data_ptr() & 15
         for t in operands[1:]
     ):  # the common calls: one shape, or against a single [8] element
         n = a.numel() // NLIMB
         strides = [[0, 0, 0, NLIMB if t.dim() > 1 else 0] for t in operands]
-        return tuple(a.shape[:-1]), 1, [1, 1, 1, n], strides, operands
+        return Plan(tuple(a.shape[:-1]), 1, [1, 1, 1, n], strides, list(operands), _NO_DIVISORS)
     views = list(operands)
     for i, t in enumerate(views):
-        if t.stride(-1) != 1:
-            views[i] = t.contiguous()
+        if not _vector_ready(t):
+            views[i] = t.clone(memory_format=torch.contiguous_format)
             copies += 1
     shapes = [tuple(t.shape[:-1]) for t in views]
     lead = shapes[0] if all(s == shapes[0] for s in shapes) else _broadcast(shapes)
@@ -358,8 +403,9 @@ def kernel_plan(*operands: torch.Tensor):
     if not sizes:  # a single element
         sizes, strides = [1], [[0] for _ in views]
     pad = KERNEL_DIMS - len(sizes)
+    divisors = [0] * (pad + 1) + [divider(d) for d in sizes[1:]]
     strides = [[0] * pad + s for s in strides]
-    return lead, len(sizes), [1] * pad + sizes, strides, views
+    return Plan(lead, len(sizes), [1] * pad + sizes, strides, views, divisors)
 
 
 def _launch(kernel: _build.Kernel, name: str, *operands: torch.Tensor) -> torch.Tensor:
@@ -372,12 +418,15 @@ def _launch(kernel: _build.Kernel, name: str, *operands: torch.Tensor) -> torch.
         if t.dtype != DTYPE or t.dim() == 0 or t.shape[-1] != NLIMB:
             raise ValueError(f"{name}: expected {DTYPE} [..., {NLIMB}] limbs, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    lead, ndim, sizes, strides, views = kernel_plan(*operands)
-    out = torch.empty(lead + (NLIMB,), dtype=DTYPE, device=dev)
+    plan = kernel_plan(*operands)
+    out = torch.empty(plan.lead + (NLIMB,), dtype=DTYPE, device=dev)
     n = out.numel() // NLIMB
+    if n > MAX_KERNEL_ELEMENTS:
+        raise ValueError(f"{name}: {n} elements, the kernel indexes at most {MAX_KERNEL_ELEMENTS}")
     if n:
-        kernel(*(v.data_ptr() for v in views), out.data_ptr(), n, ndim, *sizes,
-               *(s for st in strides for s in st), _build.stream_ptr(dev))
+        kernel(*(v.data_ptr() for v in plan.views), out.data_ptr(), n, plan.ndim, *plan.sizes,
+               *(s for st in plan.strides for s in st), *plan.divisors,
+               _build.stream_ptr(dev))
     return out
 
 
