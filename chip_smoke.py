@@ -25,13 +25,21 @@ runs (run_plain):
    and one profiled call of each op (one launch of its kernel, nothing
    else);
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   with both times (CUDA events, median; the leaf and node also queued):
-   first the leaf on one value of every decimal length (against hashlib
-   too; its ptxas stack frame must be 0 bytes), at the signature's shapes, then
-   at the chain's (the four-step NTT, fused-twiddle mode, at 2^18 and 2^20
-   against the flat plain transform, forward and inverse; fold and leaf at
-   2^20; node at 2^19 parents), with each NTT pass's block shape; then
-   the node kernel at every level of a 2^20-leaf tree (queued);
+   with both times (CUDA events, median; the leaf, fold and node also
+   queued): first the leaf on one value of every decimal length (against
+   hashlib too; its ptxas stack frame must be 0 bytes), at the signature's
+   shapes, then at the chain's (the four-step NTT, fused-twiddle mode, at
+   2^18 and 2^20 against the flat plain transform, forward and inverse;
+   leaf at 2^20), with each NTT pass's block shape; the fold at codeword
+   lengths 2, 64, 514, 4096 and 2^20 (a one-element call, partial tiles),
+   each also from a view that starts mid-element (copied once, counted),
+   timed at the last two; the node kernel asked for one level at 2048 and
+   2^19 parents (timed) and 1000 (its last block partly full);
+3b. the node kernel's trees (tree_kernel) of 1, 2, 4, ..., 2^12 and 2^20
+   leaves, every level bit for bit against the per-level plain loop, a
+   random 2^12-leaf tree's layers against the host MerkleTree (hashlib);
+   each tree's launches and queued time beside the sum of its levels each
+   launched alone, and its bound;
 4. the fixture-config signature with the deterministic rng: its sha256
    equals tests/fixtures/meta.json's, it verifies, tampered copies fail;
 5. the RPSSS path: keygen -> sign -> verify at the default config
@@ -39,7 +47,9 @@ runs (run_plain):
    kernel's launch count reset just before the warm sign and read just
    after it; the proof is 1,156,888 bytes, verifies, and a wrong document
    is rejected; then one more sign and verify under torch.profiler (stage
-   host times, device busy time and idle share, device time by kernel);
+   host times, device busy time and idle share, device time by kernel;
+   the node and fold kernels' device time beside the bound of the trees
+   and folds the sign made);
 6. the chain fixture (tests/fixtures/chain_meta.json, FRI 2^14) reproduced
    byte for byte on the card; it verifies and a wrong output is rejected;
 7. the chain path: the Rescue-permutation chain of length 3200 (FRI 2^20):
@@ -87,6 +97,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import pathlib
@@ -104,6 +115,7 @@ sys.path.insert(0, str(ROOT))
 
 from zk_stark_tpu_torch.carry import DetRng, chain_from_config, rpsss_from_config  # noqa: E402
 from zk_stark_tpu_torch.field import Field  # noqa: E402
+from zk_stark_tpu_torch.merkle import MerkleTree  # noqa: E402
 from zk_stark_tpu_torch.models.rescue_chain import make_chain_stark  # noqa: E402
 from zk_stark_tpu_torch.models.rescue_prime import RescuePrime  # noqa: E402
 from zk_stark_tpu_torch.models.rpsss import RPSSS  # noqa: E402
@@ -142,9 +154,17 @@ LEAF_COMPRESS_OPS = COMPRESS_OPS - 11 * 12 * 2
 #: of 64 by 32 bits as multiply-highs (~8 each), 5 groups of 8 digits (~21
 #: each), the digit count (~15) and the byte shift (~60)
 DECIMAL_OPS = 10 * 8 + 5 * 21 + 15 + 60
-#: a node level this wide fills the card (128 blocks of 128 threads); the
-#: levels above it are the narrow top of a tree
-NODE_WIDE_PARENTS = 1 << 14
+#: the trees of phase 3b: 1, 2, 4, ..., 2^12 leaves (a sign's) and 2^20 (the
+#: chain's codewords)
+TREE_SIZES_LOG2 = 12
+TREE_BIG = 1 << 20
+#: the fold's codeword lengths in phase 3: a one-element call, partial
+#: tiles, a sign's and the chain's; the last two timed
+FOLD_SIZES = (2, 64, 514, 4096, 1 << 20)
+FOLD_TIMED = (4096, 1 << 20)
+#: the node kernel asked for one level: a sign's widest level, the chain's,
+#: and one whose last block is partly full (checked, not timed)
+NODE_LEVEL_PARENTS = (2048, 1 << 19, 1000)
 
 MAIN_PROOF_BYTES = 1_156_888
 #: the chain of BASELINE.md config 5: omicron domain 2^18, FRI domain 2^20;
@@ -321,28 +341,55 @@ def leaf_digit_phase(dev, logs: dict) -> dict:
     return {"values": len(vals), "max_abs_err": err, "stack_frame_bytes": frame}
 
 
-def node_tree_phase(level: torch.Tensor) -> dict:
-    """Phase 3b: node_kernel at every level of one Merkle tree over
-    ``level`` (a 2^20-leaf codeword's), each level's device time (queued:
-    the narrow levels take less time on the card than their launch on the
-    host): where a tree's node time goes, the wide levels against the
-    narrow top ones."""
-    levels = []
-    while level.shape[0] > 1:
-        m = level.shape[0] // 2
-        cur = level
-        levels.append((m, time_ms(lambda: B.node_kernel(cur), queued=True)))
-        level = B.node_kernel(level)
-    total = sum(ms for _, ms in levels)
-    narrow = sum(ms for m, ms in levels if m < NODE_WIDE_PARENTS)
-    result = {"levels": [[m, ms] for m, ms in levels], "tree_ms": total,
-              "narrow_ms": narrow, "narrow_share": narrow / total,
-              "narrow_launches": sum(m < NODE_WIDE_PARENTS for m, _ in levels)}
-    print(f"node tree of {levels[0][0] * 2} leaves: {len(levels)} launches, {total:.4f} ms; the "
-          f"{result['narrow_launches']} levels under {NODE_WIDE_PARENTS} parents "
-          f"{narrow:.4f} ms ({result['narrow_share']:.3f}); by level "
-          + ", ".join(f"{m}: {ms:.4f}" for m, ms in levels), flush=True)
-    return result
+def tree_bound(n: int, int_rate: float) -> tuple[float, str]:
+    """A tree of n leaves: node_bound summed over its levels."""
+    parts = [node_bound(n >> j, int_rate) for j in range(1, n.bit_length())]
+    return sum(ms for ms, _ in parts), parts[0][1] if parts else "operations"
+
+
+def node_tree_phase(dev, int_rate: float) -> dict:
+    """Phase 3b: tree_kernel on trees of 1, 2, 4, ..., 2^12 and 2^20 leaves
+    (depths a multiple of TREE_LEVELS and not), every level bit for bit
+    against the per-level plain loop (tree_plain), a random 2^12-leaf
+    tree's layers against hashlib (the host MerkleTree); for each tree its
+    launches, its device time (queued) beside the sum of its levels each
+    hashed by its own launch (node_kernel one level at a time: the parent
+    design's loop), and its bound."""
+    gen = torch.Generator().manual_seed(1236)
+    trees = {}
+    for n in [1 << j for j in range(TREE_SIZES_LOG2 + 1)] + [TREE_BIG]:
+        vals = L.mont_to_ints(random_mont(n, gen, "cpu")) if n == 1 << TREE_SIZES_LOG2 else None
+        canon = (L.from_numpy(L.ints_to_limbs(vals), dev) if vals is not None
+                 else random_mont(n, gen, dev))
+        leaves = B.leaf_kernel(canon)
+        launches0 = B.NODE_KERNEL.launches
+        inner = B.tree_kernel(leaves)
+        torch.cuda.synchronize()
+        launches = B.NODE_KERNEL.launches - launches0
+        require(launches == len(B.tree_launches(n)),
+                f"tree of {n} leaves: {launches} launches, planned {len(B.tree_launches(n))}")
+        plain, p_ms = timed_once(lambda: B.tree_plain(leaves))
+        err = check(f"tree of {n} leaves", inner, plain)
+        if vals is not None:
+            layers = [[bytes(row) for row in lvl.cpu().numpy()]
+                      for lvl in B.split_levels(leaves, inner)]
+            require(layers == MerkleTree.from_ints([int(v) for v in vals]).layers,
+                    f"tree of {n} leaves differs from the host MerkleTree (hashlib)")
+        q_ms = time_ms(lambda: B.tree_kernel(leaves), queued=True)
+        level_ms = []
+        for lvl in B.split_levels(leaves, inner)[:-1]:
+            level_ms.append(time_ms(lambda: B.node_kernel(lvl), queued=True))
+        bound = tree_bound(n, int_rate)
+        trees[n] = dict(launches=launches, ms=q_ms, per_level_ms=sum(level_ms),
+                        per_level_launches=len(level_ms), plain_ms=p_ms, bound_ms=bound[0],
+                        bound_by=bound[1], max_abs_err=err,
+                        plan=[k for _, k in B.tree_launches(n)])
+        print(f"node tree of {n} leaves: bit-exact against the per-level plain loop"
+              f"{' and the host MerkleTree (hashlib)' if vals is not None else ''}; "
+              f"{launches} launches (levels {trees[n]['plan']}), {q_ms:.5f} ms queued; one launch "
+              f"a level: {len(level_ms)} launches, {sum(level_ms):.5f} ms; plain {p_ms:.3f} ms; "
+              f"bound {bound[0]:.6f} ms ({bound[1]})", flush=True)
+    return trees
 
 
 def compare_kernels(dev, int_rate: float, logs: dict | None = None) -> dict:
@@ -391,36 +438,62 @@ def compare_kernels(dev, int_rate: float, logs: dict | None = None) -> dict:
         record(name, kernel, f"n={n}", err, k_ms, p_ms, ntt_bound(n, int_rate))
         print(f"ntt n={n} plan: {plan_text(n, 1)}", flush=True)
 
-    for n in (4096, 1 << 20):
+    for n in FOLD_SIZES:
         cw = random_mont(n, gen, dev)
-        omega = F.primitive_nth_root(n).value
-        invpows = N.powers_mont(pow(omega, -1, L.P), n // 2, dev)
+        invpows = random_mont(n // 2, gen, dev)
         ao = L.int_to_mont(987654321987654321 % L.P, dev)
         ti = L.int_to_mont(pow(2, -1, L.P), dev)
         kf, kc = FO.fold_kernel(cw, invpows, ao, ti)
         pf, pc = run_plain(FO.fold_plain, cw, invpows, ao, ti)
         err = max(check(f"fold n={n} folded", kf, pf), check(f"fold n={n} canon", kc, pc))
+        # a codeword that starts mid-element: copied by the wrapper, counted
+        shifted = limb_operands("misaligned", cw, cw, 1)[0]
+        copies = L.copies
+        sf, sc = FO.fold_kernel(shifted, invpows, ao, ti)
+        require(L.copies - copies == 1, f"fold n={n}: {L.copies - copies} copies of a "
+                                        "codeword that starts mid-element")
+        err = max(err, check(f"fold n={n} from a view that starts mid-element", sf, pf),
+                  check(f"fold n={n} canon from the view", sc, pc))
+        if n not in FOLD_TIMED:
+            print(f"fold n={n}: bit-exact (also from a view that starts mid-element)", flush=True)
+            continue
         k_ms = time_ms(lambda: FO.fold_kernel(cw, invpows, ao, ti))
+        q_ms = time_ms(lambda: FO.fold_kernel(cw, invpows, ao, ti), queued=True)
         p_ms = time_ms(lambda: run_plain(FO.fold_plain, cw, invpows, ao, ti), reps=5, runs=3)
-        record("fold", FO.FOLD_KERNEL, f"n={n}", err, k_ms, p_ms, fold_bound(n, int_rate))
+        record("fold", FO.FOLD_KERNEL, f"n={n}", err, k_ms, p_ms, fold_bound(n, int_rate), q_ms)
 
-        canon = L.from_mont(cw)
+    for n in (4096, 1 << 20):
+        canon = L.from_mont(random_mont(n, gen, dev))
         err = check(f"leaf n={n}", B.leaf_kernel(canon), B.leaf_digests_plain(canon))
         k_ms = time_ms(lambda: B.leaf_kernel(canon))
         q_ms = time_ms(lambda: B.leaf_kernel(canon), queued=True)
         p_ms = time_ms(lambda: B.leaf_digests_plain(canon), reps=3, runs=3)
         record("leaf", B.LEAF_KERNEL, f"n={n}", err, k_ms, p_ms, leaf_bound(n, int_rate), q_ms)
 
-        level = B.leaf_kernel(canon)  # n digests -> n/2 parents
-        m = n // 2
+    # the node kernel asked for one level (blocks of 2^LEVEL_SPAN_LOG2
+    # children), at the widest levels of a sign's and a chain's trees
+    for m in NODE_LEVEL_PARENTS:
+        level = B.leaf_kernel(L.from_mont(random_mont(2 * m, gen, dev)))
         err = check(f"node parents={m}", B.node_kernel(level), B.node_digests_plain(level))
+        if m % (1 << (B.LEVEL_SPAN_LOG2 - 1)):
+            print(f"node parents={m}: bit-exact (last block partly full)", flush=True)
+            continue
         k_ms = time_ms(lambda: B.node_kernel(level))
         q_ms = time_ms(lambda: B.node_kernel(level), queued=True)
         p_ms = time_ms(lambda: B.node_digests_plain(level), reps=3, runs=3)
         record("node", B.NODE_KERNEL, f"parents={m}", err, k_ms, p_ms, node_bound(m, int_rate),
                q_ms)
     torch.cuda.synchronize()
-    rows["node"]["tree"] = node_tree_phase(level)
+    trees = node_tree_phase(dev, int_rate)
+    for n in (1 << TREE_SIZES_LOG2, TREE_BIG):  # the headline: the chain's tree
+        t = trees[n]
+        record("node", B.NODE_KERNEL, f"leaves={n}", t["max_abs_err"], t["ms"], t["plain_ms"],
+               (t["bound_ms"], t["bound_by"]), t["ms"])
+        rows["node"]["by_size"][f"leaves={n}"].update(
+            launches=t["launches"], per_level_ms=t["per_level_ms"],
+            per_level_launches=t["per_level_launches"], plan=t["plan"])
+    rows["node"]["trees"] = {n: {k: v for k, v in t.items() if k != "max_abs_err"}
+                             for n, t in trees.items()}
     rows["leaf"]["decimal_lengths"] = digits
     rows["leaf"]["max_abs_err"] = max(rows["leaf"]["max_abs_err"], digits["max_abs_err"])
     rows["ntt"]["source"] = rows["ntt_four_step"]["source"] = "zk_stark_tpu_torch/csrc/ntt.cu"
@@ -502,16 +575,41 @@ def main_path(dev, kernels) -> tuple[dict, tuple]:
     return result, (rpsss, sk, pk, doc)
 
 
+@contextlib.contextmanager
+def recorded_shapes():
+    """While active, the leaf count of every tree_kernel call and the
+    codeword length of every fold_kernel call: a path's shapes, for its
+    bounds."""
+    shapes = {"tree_leaves": [], "fold_lengths": []}
+    tree, fold = B.tree_kernel, FO.fold_kernel
+
+    def tree_recorded(leaves):
+        shapes["tree_leaves"].append(int(leaves.shape[0]))
+        return tree(leaves)
+
+    def fold_recorded(cw, *args):
+        shapes["fold_lengths"].append(int(cw.shape[0]))
+        return fold(cw, *args)
+
+    B.tree_kernel, FO.fold_kernel = tree_recorded, fold_recorded
+    try:
+        yield shapes
+    finally:
+        B.tree_kernel, FO.fold_kernel = tree, fold
+
+
 def profiled(fn) -> dict:
     """Run ``fn`` once under torch.profiler: its wall time, the host time of
     the prover's and verifier's record_function spans ("stark.*"), the
     device's busy time (sum of kernel and copy durations; one stream, so no
-    overlap) and idle share, and the device time by kernel name."""
+    overlap) and idle share, the device time by kernel name, and the
+    shapes of its trees and folds (recorded_shapes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with recorded_shapes() as shapes, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -546,6 +644,8 @@ def profiled(fn) -> dict:
         "limbs_kernels": share("limbs_"),
         "leaf_kernel": share("leaf_kernel"),
         "node_kernel": share("node_kernel"),
+        "fold_kernel": share("fold_kernel"),
+        **shapes,
         "stages_host_ms": stages,
         "top_device_ms": {k: [v[0], v[1]] for k, v in top},
     }
@@ -1211,12 +1311,28 @@ def main() -> int:
     mm = montmul_chain_phase(dev, int_rate)
     comp = compress_phase(dev, int_rate)
     rescue = rescue_phase(dev, int_rate, mm["ns_per_product"], mm["sass_ops_per_product"], logs)
-    # the leaf and node rows beside the measured compression rate
+    # the leaf and node rows beside the measured compression rate (a tree
+    # of n leaves is n - 1 compressions)
     for name in ("leaf", "node"):
         for size, entry in rows[name]["by_size"].items():
-            count = int(size.split("=")[1])
+            kind, count = size.split("=")
+            count = int(count) - (kind == "leaves")
             entry["compress_ceiling_ms"] = count * comp["ns_per_compression"] * 1e-6
         rows[name]["compress_ceiling_ms"] = entry["compress_ceiling_ms"]
+    # the node and fold kernels' device time over a whole path beside the
+    # bound of the trees and folds that path made
+    for path, prof in (("sign", main["profile"]["sign"]), ("chain prove", chain["profile"])):
+        prof["node_bound_ms"] = sum(tree_bound(n, int_rate)[0] for n in prof["tree_leaves"])
+        prof["fold_bound_ms"] = sum(fold_bound(n, int_rate)[0] for n in prof["fold_lengths"])
+        print(f"{path} path: node {prof['node_kernel'][0]:.4f} ms in {prof['node_kernel'][1]} "
+              f"launches ({len(prof['tree_leaves'])} trees of {sorted(prof['tree_leaves'])} "
+              f"leaves), bound {prof['node_bound_ms']:.4f} ms; fold {prof['fold_kernel'][0]:.4f} "
+              f"ms in {prof['fold_kernel'][1]} launches (codewords "
+              f"{sorted(prof['fold_lengths'])}), bound {prof['fold_bound_ms']:.4f} ms", flush=True)
+        for name in ("node", "fold"):
+            rows[name][f"{path.replace(' ', '_')}_path"] = {
+                "device_ms": prof[f"{name}_kernel"][0], "launches": prof[f"{name}_kernel"][1],
+                "bound_ms": prof[f"{name}_bound_ms"]}
     for row in rows.values():
         row["launches"] = chain["launches"][row["kernel"].name]
     rows["ntt_four_step"]["by_size"].update(long_ntt["four_step_by_size"])

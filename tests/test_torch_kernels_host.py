@@ -22,6 +22,7 @@ import torch
 
 import chip_smoke
 from zk_stark_tpu.ops import limbs as JL
+from zk_stark_tpu_torch import merkle
 from zk_stark_tpu_torch.field import FIELD_PRIME as P
 from zk_stark_tpu_torch.field import Field
 from zk_stark_tpu_torch.models.rescue_prime import RescuePrime
@@ -64,9 +65,22 @@ static Barrier block_barrier;
 #define __host__
 #define __forceinline__ inline
 #define __shared__
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 struct alignas(16) longlong2 { long long x, y; };
 static inline void __syncthreads() { block_barrier.wait(); }
+// __shfl_sync within groups of `width` (4) threads: each group meets at its
+// own barrier, so warps that skip a level together skip its shuffles too
+static Barrier group_barrier[256];
+static uint64_t shfl_slot[1024];
+template <class T> static T __shfl_sync(unsigned, T v, int src, int width) {
+  const unsigned t = threadIdx.x, base = t & ~(unsigned)(width - 1);
+  Barrier& b = group_barrier[t / width];
+  shfl_slot[t] = (uint64_t)v;
+  b.wait();
+  const T r = (T)shfl_slot[base + ((unsigned)src & (unsigned)(width - 1))];
+  b.wait();
+  return r;
+}
 #include "ntt.cu"
 #include "ntt_variants.cu"
 Fe4 sh[1 << 13];
@@ -77,6 +91,8 @@ uint32_t rescue_smem[1 << 14];
 #include "montmul_chain.cu"
 #include "limbs.cu"
 longlong2 leaf_smem[1 + 4 * 64];
+longlong2 fold_smem[1 << 12];
+longlong2 node_smem[1 << 12];
 longlong2 limbs_smem[1 << 12];
 
 extern "C" void host_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n) {
@@ -92,6 +108,8 @@ static void grid(unsigned blocks) {
 template <class F> static void run_block(unsigned threads, F body) {
   blockDim.x = threads;
   block_barrier.count = threads;
+  for (unsigned g = 0; g < 256; ++g)
+    group_barrier[g].count = 4 * g >= threads ? 1 : (threads - 4 * g < 4 ? threads - 4 * g : 4);
   std::vector<std::thread> ts;
   for (unsigned t = 0; t < threads; ++t)
     ts.emplace_back([=] { threadIdx.x = t; threadIdx.y = threadIdx.z = 0; body(); });
@@ -126,10 +144,17 @@ extern "C" void host_variant(char which, const int64_t* x, int64_t* y, const uin
     if (which == 'c') ntt_variant_c(x, y, tw, log2n, c);
   }
 }
+// a persistent grid of `blocks` blocks of `threads` threads over tiles of
+// `tile` outputs (tile <= threads)
 extern "C" void host_fold(const int64_t* cw, const int64_t* ip, const int64_t* ao,
-                          const int64_t* ti, int64_t* f, int64_t* c, int half) {
-  grid(half);
-  for (int i = 0; i < half; ++i) { blockIdx.x = i; fold_kernel(cw, ip, ao, ti, f, c, half); }
+                          const int64_t* ti, int64_t* f, int64_t* c, int half, int tile,
+                          int blocks, int threads) {
+  grid(blocks);
+  gridDim.x = blocks;
+  for (int b = 0; b < blocks; ++b) {
+    blockIdx.x = b;
+    run_block(threads, [=] { fold_kernel(cw, ip, ao, ti, f, c, half, tile); });
+  }
 }
 // blocks of `threads` leaves (at most 64), the last one partial
 extern "C" void host_leaf(const int64_t* canon, uint8_t* out, int n, int threads) {
@@ -141,9 +166,17 @@ extern "C" void host_leaf(const int64_t* canon, uint8_t* out, int n, int threads
     run_block(threads, [=] { leaf_kernel(canon, out, n); });
   }
 }
-extern "C" void host_node(const uint8_t* level, uint8_t* out, int m) {
-  grid(m);
-  for (int i = 0; i < m; ++i) { blockIdx.x = i; node_kernel(level, out, m); }
+// one launch of the node kernel: blocks of 2^span_log2 children (the last
+// one partly full), `levels` levels, `threads` threads a block
+extern "C" void host_node(const uint8_t* in, uint8_t* out, int m, int span_log2, int levels,
+                          int threads) {
+  const int blocks = (m + (1 << span_log2) - 1) >> span_log2;
+  grid(blocks);
+  gridDim.x = blocks;
+  for (int b = 0; b < blocks; ++b) {
+    blockIdx.x = b;
+    run_block(threads, [=] { node_kernel(in, out, m, span_log2, levels); });
+  }
 }
 extern "C" void host_compress(const int64_t* mh, const int64_t* ml, const int64_t* t,
                               int64_t* oh, int64_t* ol, int n) {
@@ -216,6 +249,8 @@ def lib(tmp_path_factory):
                                + [ctypes.c_int64, ctypes.c_int] + [index] * 4
                                + [ctypes.c_int] * 3)
     lib.host_leaf.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    lib.host_fold.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    lib.host_node.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
     return lib
 
 
@@ -440,17 +475,42 @@ def test_ntt_variant_sources(lib, which, n):
     assert torch.equal(y, V.stages_plain(x, root))
 
 
-def test_fold_kernel_source(lib):
-    n = 512
+#: (codeword length, tile, blocks, threads) of the emulated fold launches:
+#: a one-element call, one block walking two tiles, 257 outputs in tiles of
+#: 8 over 3 persistent blocks (a partial last tile), and tiles smaller than
+#: the block (idle threads) over 5 blocks
+FOLD_GRIDS = [(2, 8, 1, 8), (64, 16, 1, 16), (514, 8, 3, 8), (4096, 24, 5, 32)]
+
+
+@pytest.mark.parametrize("n, tile, blocks, threads", FOLD_GRIDS,
+                         ids=[f"n{n}-tile{t}-blocks{b}-threads{th}" for n, t, b, th in FOLD_GRIDS])
+def test_fold_kernel_source(lib, n, tile, blocks, threads):
+    """fold.cu's persistent grid over double-buffered tiles against the
+    plain version, with every pair of {0, 1, p-1, p-2, R mod p} leading the
+    codeword's halves."""
+    half = n // 2
+    ea, eb = chip_smoke.edge_pairs()
     cw = _rand_mont(1, n)
-    ip = _rand_mont(2, n // 2)
+    k = min(half, len(ea))
+    cw[:k] = L.from_numpy(L.ints_to_limbs(ea[:k]), "cpu")
+    cw[half:half + k] = L.from_numpy(L.ints_to_limbs(eb[:k]), "cpu")
+    ip = _rand_mont(2, half)
     ao = _rand_mont(3, 1)[0]
     ti = L.int_to_mont(pow(2, -1, P), "cpu")
-    folded = torch.empty((n // 2, L.NLIMB), dtype=L.DTYPE)
-    canon = torch.empty_like(folded)
-    lib.host_fold(*_ptrs(cw, ip, ao, ti, folded, canon), n // 2)
+    folded = torch.full((half, L.NLIMB), -1, dtype=L.DTYPE)
+    canon = torch.full_like(folded, -1)
+    lib.host_fold(*_ptrs(cw, ip, ao, ti, folded, canon), half, tile, blocks, threads)
     want_f, want_c = FO.fold_plain(cw, ip, ao, ti)
     assert torch.equal(folded, want_f) and torch.equal(canon, want_c)
+
+
+def _node_source(lib, level, span_log2, levels, threads):
+    """One emulated node launch over ``level`` [m, 64]: its `levels` levels
+    one after another."""
+    m = level.shape[0]
+    out = torch.full((sum(m >> j for j in range(1, levels + 1)), 64), 7, dtype=torch.uint8)
+    lib.host_node(*_ptrs(level, out), m, span_log2, levels, threads)
+    return out
 
 
 @pytest.mark.parametrize("threads", [1, 7, 64])
@@ -458,8 +518,10 @@ def test_leaf_and_node_kernel_sources(lib, threads):
     """The leaf kernel on chip_smoke.py's decimal-length values (one of
     every length from 1 to 39 digits and every group boundary) and seeded
     random elements, in blocks of 1, 7 and 64 threads (a partial last
-    block), against hashlib and the plain version; the node kernel on the
-    digests."""
+    block), against hashlib and the plain version; the node kernel asked
+    for one level, as ``node_kernel`` asks it (blocks of
+    2^LEVEL_SPAN_LOG2 children, here 2^2 and 2^5 with a partly full last
+    block), on the digests."""
     vals = chip_smoke.decimal_values() + [(1 << 128) - 1]
     vals += [int(v) for v in L.mont_to_ints(_rand_mont(4, 117))]
     canon = L.from_numpy(L.ints_to_limbs(vals), "cpu")
@@ -468,10 +530,57 @@ def test_leaf_and_node_kernel_sources(lib, threads):
     assert torch.equal(leaves, B.leaf_digests_plain(canon))
     assert [bytes(row) for row in leaves.numpy()] == [
         hashlib.blake2b(str(v).encode(), digest_size=64).digest() for v in vals]
-    m = len(vals) // 2
-    parents = torch.empty((m, 64), dtype=torch.uint8)
-    lib.host_node(*_ptrs(leaves, parents), m)
-    assert torch.equal(parents, B.node_digests_plain(leaves[:2 * m]))
+    level = leaves[:len(vals) // 2 * 2]
+    for span_log2 in (2, 5):
+        parents = _node_source(lib, level, span_log2, 1, threads)
+        assert torch.equal(parents, B.node_digests_plain(level)), span_log2
+
+
+#: (leaves, levels a launch at most, threads a block) of the emulated trees:
+#: 1 and 2 leaves; depths 3, 6 and 7 a multiple of the launch's levels and
+#: not (plans [3], [2, 1], [3, 3], [3, 2, 2], [4, 3], [2, 2, 2]); blocks of
+#: 1 and 3 threads (one thread a parent), of 8, 16 and 64 (four lanes a
+#: parent on the levels of at most 2, 4 and 16 parents; at 64 the second
+#: warp skips the levels of at most 8)
+TREE_CASES = [(1, 2, 1), (2, 2, 3), (8, 3, 1), (8, 2, 3), (64, 3, 8), (64, 4, 3), (128, 3, 8),
+              (128, 4, 1), (64, 2, 3), (128, 4, 16), (128, 4, 64), (64, 6, 64)]
+
+
+@pytest.mark.parametrize("n, max_levels, threads", TREE_CASES,
+                         ids=[f"leaves{n}-k{k}-threads{t}" for n, k, t in TREE_CASES])
+def test_node_tree_kernel_source(lib, monkeypatch, n, max_levels, threads):
+    """The node kernel's launches of ``tree_launches`` (TREE_LEVELS lowered
+    to 2-4, so that small trees take several levels a launch and several
+    launches), each from the level the one before wrote in the shared inner
+    buffer, against the per-level plain loop and the host MerkleTree's
+    layers (hashlib)."""
+    monkeypatch.setattr(B, "TREE_LEVELS", max_levels)
+    rng = np.random.default_rng(n + max_levels)
+    vals = [int(v) % P for v in rng.integers(0, 1 << 63, size=n, dtype=np.uint64)]
+    leaves = B.leaf_digests_plain(L.from_numpy(L.ints_to_limbs(vals), "cpu"))
+    inner = torch.full((n - 1, 64), 7, dtype=torch.uint8)
+    launches = B.tree_launches(n)
+    assert sum(k for _, k in launches) == n.bit_length() - 1
+    assert len(launches) == -(-(n.bit_length() - 1) // max_levels)
+    for level, k in launches:
+        src = leaves if level == 0 else inner[B.level_start(n, level)]
+        dst = inner[B.level_start(n, level + 1)]
+        lib.host_node(*_ptrs(src, dst), n >> level, k, k, threads)
+    assert torch.equal(inner, B.tree_plain(leaves))
+    levels = B.split_levels(leaves, inner)
+    host = merkle.MerkleTree.from_ints(vals)
+    assert [[bytes(row) for row in lvl.numpy()] for lvl in levels] == host.layers
+
+
+def test_node_kernel_source_partial_block(lib):
+    """A launch whose blocks take more children than its levels reduce, the
+    last block partly full: 24 children in spans of 16, two levels (blocks
+    of 16 and 8 children, 4 and 2 digests at the top), 3 threads a block."""
+    rng = np.random.default_rng(24)
+    level = torch.from_numpy(rng.integers(0, 256, size=(24, 64), dtype=np.uint8))
+    out = _node_source(lib, level, 4, 2, 3)
+    one = B.node_digests_plain(level)
+    assert torch.equal(out, torch.cat([one, B.node_digests_plain(one)]))
 
 
 def test_compress_kernel_source(lib):

@@ -40,6 +40,42 @@ def test_node_digest_parity():
         assert got[i].numpy().tobytes() == _digest(pair)
 
 
+@pytest.mark.parametrize("log2n", range(12))
+def test_tree_plain_matches_host_layers(log2n):
+    """The tree entry point on the CPU (the per-level plain loop) gives the
+    host MerkleTree's layers, as views of one [n - 1, 64] buffer, for 1 ...
+    2^11 leaves; the card's launch plan covers every level once."""
+    n = 1 << log2n
+    random.seed(log2n)
+    vals = [random.randrange(P) for _ in range(n)]
+    leaves = B.leaf_digests(L.from_numpy(L.ints_to_limbs(vals), "cpu"))
+    inner = B.tree_digests(leaves)
+    assert inner.dtype == torch.uint8 and tuple(inner.shape) == (n - 1, 64)
+    levels = B.split_levels(leaves, inner)
+    assert [tuple(lvl.shape) for lvl in levels] == [(n >> j, 64) for j in range(log2n + 1)]
+    assert all(lvl.data_ptr() == inner[B.level_start(n, j)].data_ptr()
+               for j, lvl in enumerate(levels[1:], 1))
+    assert [[bytes(row) for row in lvl.numpy()] for lvl in levels] == (
+        merkle.MerkleTree.from_ints(vals).layers)
+    launches = B.tree_launches(n)
+    assert [lvl for lvl, _ in launches] == [sum(k for _, k in launches[:i])
+                                            for i in range(len(launches))]
+    assert sum(k for _, k in launches) == log2n
+    assert len(launches) == -(-log2n // B.TREE_LEVELS)
+    assert all(0 < k <= B.TREE_LEVELS for _, k in launches)
+
+
+def test_tree_launches_at_the_paths_sizes():
+    """Two launches for a 2^20-leaf tree (ten levels each) and for a sign's
+    4096-leaf trees (six each); one up to 2^10 leaves."""
+    assert B.tree_launches(1 << 20) == [(0, 10), (10, 10)]
+    assert B.tree_launches(1 << 12) == [(0, 6), (6, 6)]
+    assert B.tree_launches(1 << 19) == [(0, 10), (10, 9)]
+    assert B.tree_launches(1 << 10) == [(0, 10)]
+    assert B.tree_launches(2) == [(0, 1)]
+    assert B.tree_launches(1) == []
+
+
 @pytest.fixture(scope="module")
 def trees():
     random.seed(8)
@@ -53,6 +89,10 @@ def trees():
 def test_root_and_paths_match_jax_tree(trees):
     vals, port, ref = trees
     assert port.root == ref.root
+    # the inner levels are views of one buffer, each [m, 64] in natural order
+    storage = port.levels[1].untyped_storage().data_ptr()
+    assert all(lvl.untyped_storage().data_ptr() == storage for lvl in port.levels[2:])
+    assert [tuple(lvl.shape) for lvl in port.levels] == [(1024 >> j, 64) for j in range(11)]
     assert port.root == merkle.MerkleTree.from_ints(vals).root
     idx = [0, 1, 2, 511, 512, 1000, 1023, 5]
     [(values, paths)] = merkle.open_many([(port, idx)])
@@ -83,3 +123,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         B.leaf_kernel(L.from_numpy(L.ints_to_limbs([1, 2]), "cpu"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         B.node_kernel(torch.zeros((2, 64), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        B.tree_kernel(torch.zeros((4, 64), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="power of two"):
+        B.tree_kernel(torch.zeros((6, 64), dtype=torch.uint8))

@@ -47,11 +47,48 @@
 // selects and funnel shifts.  The compression then knows at compile time
 // that message words 5-15 are zero (a decimal string of a value below
 // 2^128 has at most 39 bytes), so their additions fold away.
+//
+// The node (redesigned for the H100) hashes several levels of a tree in
+// one launch, where the TPU kernel (one Mosaic call a level) took one: a
+// block takes 2^k consecutive digests of one level and hashes k levels of
+// their subtree, one barrier between levels, keeping them in shared memory
+// and storing each level's share as one bulk copy (csrc/tiles.cuh).  A
+// tree of 2^L leaves is ceil(L / 10) launches (ops/blake2b.py
+// tree_launches), where one a level cost a launch and a compression's
+// dependent chain (~5 us) at each of the narrow top levels.  What bounds a
+// block is then its own narrow levels: one thread issues a compression's
+// ~2,700 instructions at about one every two cycles (~2.6 us a level), so
+// levels of at most a quarter as many parents as threads run four lanes a
+// compression (compress_lanes: ~1.9 us a level).  A block keeps 48 KB of
+// shared memory for 2^10 children (its first level is read from device
+// memory, not staged) and at most 80 registers a thread, so that three
+// blocks of 256 threads share an SM and one's narrow levels overlap
+// another's wide ones (tools/kernel_shape_probe.py node_builds: 64
+// registers spill, 128 leave two blocks an SM; both slower).
 
 #include <stdint.h>
 
 #include "field.cuh"
 #include "tiles.cuh"
+
+namespace node {
+
+// threads a node block has at most, and blocks an SM at that width: at most
+// 80 registers a thread, so that three blocks of 256 threads (24 warps)
+// share an SM (the wrapper's NODE_THREADS is 256, two parents a thread on a
+// full block's first level; one level alone runs blocks of 128)
+constexpr int kMaxThreads = 256;
+constexpr int kMinBlocks = 3;
+// the most children a block takes: 2^11 (the wrapper asks for 2^10 at most)
+constexpr int kMaxSpanLog2 = 11;
+
+// a block's shared memory for 2^span_log2 children: its odd levels in
+// region X (2^span_log2 / 2 digests), its even levels in region Y (a quarter)
+__host__ __device__ inline int smem_bytes(int span_log2) {
+    return (3 << span_log2) / 4 * tiles::kRecordBytes;
+}
+
+}  // namespace node
 
 namespace {
 
@@ -297,20 +334,137 @@ extern "C" __global__ void __launch_bounds__(kLeafThreads) leaf_kernel(
     }
 }
 
-// level: [2m, 64] bytes in natural order; out: [m, 64] bytes.
-extern "C" __global__ void node_kernel(const uint8_t* __restrict__ level,
-                                       uint8_t* __restrict__ out, int m_parents) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= m_parents) return;
-    const uint64_t* in = reinterpret_cast<const uint64_t*>(level + 128 * (size_t)i);
+// word A, B, C or D (literal indices) for lane q = 0, 1, 2 or 3 of a group
+#define B2B_PICK(q, A, B, C, D) ((q) == 0 ? (A) : (q) == 1 ? (B) : (q) == 2 ? (C) : (D))
+
+// one round of compress_lanes: the column step, rows b, c, d turned by 1,
+// 2, 3 lanes, the diagonal step, and the rows turned back
+#define B2B_ROUND4(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, s13, s14, s15) \
+    do {                                                                            \
+        B2B_G(a, b, c, d, B2B_PICK(q, m[s0], m[s2], m[s4], m[s6]),                  \
+              B2B_PICK(q, m[s1], m[s3], m[s5], m[s7]));                             \
+        b = __shfl_sync(mask, b, q + 1, 4);                                         \
+        c = __shfl_sync(mask, c, q + 2, 4);                                         \
+        d = __shfl_sync(mask, d, q + 3, 4);                                         \
+        B2B_G(a, b, c, d, B2B_PICK(q, m[s8], m[s10], m[s12], m[s14]),               \
+              B2B_PICK(q, m[s9], m[s11], m[s13], m[s15]));                          \
+        b = __shfl_sync(mask, b, q + 3, 4);                                         \
+        c = __shfl_sync(mask, c, q + 2, 4);                                         \
+        d = __shfl_sync(mask, d, q + 1, 4);                                         \
+    } while (0)
+
+// One final-block compression of the 128-byte message at msg (t = 128)
+// over the 4 lanes q = 0..3 of a group, the SIMD form of BLAKE2b: lane q
+// holds state words q, 4 + q, 8 + q and 12 + q and runs one of the four G
+// mixes of each step, so the dependent chain is a quarter of
+// compress_final's.  Each lane holds the whole message in registers and
+// picks its words with selects that do not wait on the state.  Every lane
+// of `mask` calls it; returns digest words q (lo) and 4 + q (hi).
+__device__ __forceinline__ void compress_lanes(const longlong2* msg, int q, unsigned mask,
+                                               uint64_t& lo, uint64_t& hi) {
     uint64_t m[16];
 #pragma unroll
-    for (int k = 0; k < 16; ++k) m[k] = in[k];
-    uint64_t h[8];
-    compress_final<16>(m, 128ULL, h);
-    uint64_t* o = reinterpret_cast<uint64_t*>(out + 64 * (size_t)i);
+    for (int k = 0; k < 8; ++k) {
+        const longlong2 v = msg[k];
+        m[2 * k] = (uint64_t)v.x;
+        m[2 * k + 1] = (uint64_t)v.y;
+    }
+    const uint64_t iv_q = B2B_PICK(q, B2B_IV0, B2B_IV1, B2B_IV2, B2B_IV3);
+    const uint64_t iv_4q = B2B_PICK(q, B2B_IV4, B2B_IV5, B2B_IV6, B2B_IV7);
+    const uint64_t h_q = q == 0 ? B2B_H0 : iv_q;
+    uint64_t a = h_q, b = iv_4q, c = iv_q;
+    uint64_t d = iv_4q ^ (q == 0 ? 128ull : 0ull) ^ (q == 2 ? ~0ull : 0ull);
+
+    B2B_ROUND4(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15);
+    B2B_ROUND4(14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3);
+    B2B_ROUND4(11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4);
+    B2B_ROUND4(7, 9, 3, 1, 13, 12, 11, 14, 2, 6, 5, 10, 4, 0, 15, 8);
+    B2B_ROUND4(9, 0, 5, 7, 2, 4, 10, 15, 14, 1, 11, 12, 6, 8, 3, 13);
+    B2B_ROUND4(2, 12, 6, 10, 0, 11, 8, 3, 4, 13, 7, 5, 15, 14, 1, 9);
+    B2B_ROUND4(12, 5, 1, 15, 14, 13, 4, 10, 0, 7, 6, 3, 9, 2, 8, 11);
+    B2B_ROUND4(13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10);
+    B2B_ROUND4(6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5);
+    B2B_ROUND4(10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0);
+    B2B_ROUND4(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15);
+    B2B_ROUND4(14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3);
+
+    lo = h_q ^ a ^ c;
+    hi = iv_4q ^ b ^ d;
+}
+
+// in: [m, 64] digests of one level, natural order; out: the next `levels`
+// levels one after another ([m / 2, 64], then [m / 4, 64], ...).  Block b
+// takes children [b, b + 1) * 2^span_log2 of in (the last block fewer; a
+// multiple of 2^levels in every block) and hashes its share of each level
+// from the one below, with one barrier between levels: the first level
+// from device memory (a thread's two children are 128 contiguous bytes),
+// the others from shared memory, where the odd levels go to region X and
+// the even ones to region Y (node::smem_bytes).  Each level's share leaves
+// as one bulk store; before a level overwrites its region, the store that
+// left from there two levels before has read it.  A level of at least a
+// quarter as many parents as threads runs one thread a parent (its threads
+// taking parents p, p + blockDim.x, ...); a narrower one four lanes a
+// parent (compress_lanes), in the warps that hold a parent.
+extern "C" __global__ void __launch_bounds__(node::kMaxThreads, node::kMinBlocks) node_kernel(
+    const uint8_t* __restrict__ in, uint8_t* __restrict__ out, int m, int span_log2,
+    int levels) {
+    extern __shared__ longlong2 node_smem[];
+    uint8_t* region_x = reinterpret_cast<uint8_t*>(node_smem);
+    uint8_t* region_y = region_x + (1 << span_log2) / 2 * tiles::kRecordBytes;
+    const int t = threadIdx.x;
+    const int threads = blockDim.x;
+    const int base = blockIdx.x << span_log2;
+    const int count = m - base < (1 << span_log2) ? m - base : 1 << span_log2;
+
+    const uint8_t* src = in + 64 * (int64_t)base;  // the level below, device memory first
+    int64_t level_at = 0;  // digests of out before level j
+    for (int j = 1; j <= levels; ++j) {
+        uint8_t* dst = j & 1 ? region_x : region_y;
+        const int parents = count >> j;
+        if ((threads & 3) == 0 && 4 * parents <= threads) {
+            if ((t & ~31) < 4 * parents) {  // a warp that holds a parent
+                const int g = t >> 2, q = t & 3;
+                const int lanes = threads - (t & ~31) < 32 ? threads - (t & ~31) : 32;
+                const unsigned mask = lanes == 32 ? 0xFFFFFFFFu : (1u << lanes) - 1;
+                const int p = g < parents ? g : parents - 1;  // spare groups hash a copy
+                uint64_t lo, hi;
+                compress_lanes(reinterpret_cast<const longlong2*>(src + 128 * p), q, mask, lo,
+                               hi);
+                if (g < parents) {
+                    uint64_t* o = reinterpret_cast<uint64_t*>(dst + 64 * p);
+                    o[q] = lo;
+                    o[4 + q] = hi;
+                }
+            }
+        } else {
+            for (int p = t; p < parents; p += threads) {
+                const longlong2* c = reinterpret_cast<const longlong2*>(src + 128 * p);
+                uint64_t msg[16];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = h[k];
+                for (int k = 0; k < 8; ++k) {
+                    const longlong2 v = j == 1 ? tiles::chunk<true>(c + k) : c[k];
+                    msg[2 * k] = (uint64_t)v.x;
+                    msg[2 * k + 1] = (uint64_t)v.y;
+                }
+                uint64_t h[8];
+                compress_final<16>(msg, 128ULL, h);
+                tiles::store_words(dst + 64 * p, h, 0);
+            }
+        }
+        tiles::fence_async();
+        // the next level writes where the store of the level before this
+        // one left from: that store must have read it
+        if (t == 0) tiles::store_wait_read<0>();
+        __syncthreads();
+        if (t == 0 && parents) {
+            tiles::store_async(out + 64 * (level_at + (base >> j)), dst,
+                               (uint32_t)parents * tiles::kRecordBytes);
+        }
+        level_at += m >> j;
+        src = dst;
+    }
+    // the block's shared memory may go once the stores have read it
+    if (t == 0) tiles::store_wait_read<0>();
 }
 
 // mh, ml: [16, n] hi and lo halves of the message words; t: [n] byte
@@ -341,6 +495,9 @@ extern "C" __global__ void compress_kernel(const int64_t* __restrict__ mh,
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
+// the per-card state of the launchers is kept for kMaxDevices cards
+constexpr int kMaxDevices = 16;
+
 extern "C" int compress_launch(const void* mh, const void* ml, const void* t, void* oh,
                                void* ol, int n, void* stream) {
     const int threads = 128;
@@ -357,10 +514,22 @@ extern "C" int leaf_launch(const void* canon, void* out, int n, void* stream) {
     return (int)cudaGetLastError();
 }
 
-extern "C" int node_launch(const void* level, void* out, int m_parents, void* stream) {
-    const int threads = 128;
-    node_kernel<<<(m_parents + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)level, (uint8_t*)out, m_parents);
+// 0 < m < 2^31 children; 1 <= levels <= span_log2 <= node::kMaxSpanLog2;
+// 1 <= threads <= node::kMaxThreads
+extern "C" int node_launch(const void* in, void* out, int m, int span_log2, int levels,
+                           int threads, void* stream) {
+    static bool ready[kMaxDevices] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    dev = dev < kMaxDevices ? dev : kMaxDevices - 1;
+    if (!ready[dev]) {  // the first launch on this card: room for the largest span
+        cudaFuncSetAttribute(node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             node::smem_bytes(node::kMaxSpanLog2));
+        ready[dev] = true;
+    }
+    const int blocks = (int)(((int64_t)m + (1 << span_log2) - 1) >> span_log2);
+    node_kernel<<<blocks, threads, node::smem_bytes(span_log2), (cudaStream_t)stream>>>(
+        (const uint8_t*)in, (uint8_t*)out, m, span_log2, levels);
     return (int)cudaGetLastError();
 }
 #endif

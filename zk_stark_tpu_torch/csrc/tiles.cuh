@@ -1,5 +1,6 @@
 // Tiles of 64-byte records in shared memory, moved by the Hopper bulk copy
-// engine: what csrc/limbs.cu and csrc/blake2b.cu's leaf kernel share.
+// engine: what csrc/limbs.cu, csrc/fold.cu and csrc/blake2b.cu's leaf and
+// node kernels share.
 //
 // A record is one field element (8 int64 limbs of 16 bits) or one 64-byte
 // digest: 4 chunks of 16 bytes.  One thread copies a whole tile of records

@@ -5,12 +5,12 @@ string of a field element, an inner node ``blake2b512(left + right)``, and
 a one-leaf tree's root is the leaf hash.
 
 :class:`DeviceMerkleTree` builds every level on the device of its codeword
-(the leaf and node kernels on the card), in natural order, so the sibling
-of node ``i`` at every level is ``i ^ 1``.  Only the 64-byte root crosses to
-the host when the tree is built; :func:`open_many` gathers the values and
-sibling paths of many queries on the device and brings them back with one
-copy.  The host :class:`MerkleTree` and :func:`verify_int` serve the
-verifier.
+(the leaf kernel and a few launches of the node kernel on the card), in
+natural order, so the sibling of node ``i`` at every level is ``i ^ 1``.
+Only the 64-byte root crosses to the host when the tree is built;
+:func:`open_many` gathers the values and sibling paths of many queries on
+the device and brings them back with one copy.  The host
+:class:`MerkleTree` and :func:`verify_int` serve the verifier.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ class DeviceMerkleTree:
     power of two, hashed on the codeword's device.
 
     ``levels[0]`` holds the n leaf digests, ``levels[-1]`` the root, each a
-    ``uint8[m, 64]`` tensor in natural order.
+    ``uint8[m, 64]`` tensor in natural order; the inner levels are views of
+    one ``[n - 1, 64]`` buffer (``blake2b.tree_digests``).
     """
 
     __slots__ = ("n", "canon", "levels", "root")
@@ -45,11 +46,9 @@ class DeviceMerkleTree:
         assert n >= 1 and n & (n - 1) == 0, "leaf count must be a power of two"
         self.n = n
         self.canon = canon
-        levels = [blake2b.leaf_digests(canon)]
-        while levels[-1].shape[0] > 1:
-            levels.append(blake2b.node_digests(levels[-1]))
-        self.levels = levels
-        self.root = levels[-1][0].cpu().numpy().tobytes()
+        leaves = blake2b.leaf_digests(canon)
+        self.levels = blake2b.split_levels(leaves, blake2b.tree_digests(leaves))
+        self.root = self.levels[-1][0].cpu().numpy().tobytes()
 
     def all_values(self) -> list[int]:
         return [int(v) for v in L.limbs_to_ints(self.canon)]

@@ -10,12 +10,19 @@ digest-word API (:func:`compress_words`, :func:`node_digests_packed`,
 JAX package does, (hi, lo) 32-bit halves of the 8 little-endian words,
 here in ``int64`` planes [8, n].
 
-On CUDA tensors :func:`leaf_digests`, :func:`node_digests` and
-:func:`compress_words` launch the kernels of ``csrc/blake2b.cu`` (one
-thread per digest; the leaf's rows arrive by bulk copy, so an input that
-starts off the 16-byte grid is copied first); on CPU tensors they run
-the plain versions below, which carry each 64-bit word as (hi, lo)
-32-bit halves in ``int64`` (PyTorch's ``int64`` right shift is
+A Merkle tree's inner levels come from :func:`tree_digests`: leaf
+digests [n, 64] -> the n - 1 inner digests [n - 1, 64], level 1 (n / 2
+parents) first and the root last, each level in natural order
+(:func:`split_levels` cuts them into views).  On CUDA tensors
+:func:`leaf_digests`, :func:`tree_digests`, :func:`node_digests` (one
+level) and :func:`compress_words` launch the kernels of
+``csrc/blake2b.cu``: the leaf one thread per digest; the node several
+levels a launch, ceil(log2(n) / TREE_LEVELS) launches a tree
+(:func:`tree_launches`).  The leaf and node kernels read 16-byte
+aligned rows, so an input that starts off that grid is copied first.  On
+CPU tensors they run the plain versions below (:func:`tree_plain` is the
+per-level loop of :func:`node_digests_plain`), which carry each 64-bit
+word as (hi, lo) 32-bit halves in ``int64`` (PyTorch's ``int64`` right shift is
 arithmetic and its CPU backend has no ``uint64``/``uint32`` kernels, so
 a direct 64-bit port would rotate wrongly).
 """
@@ -40,9 +47,20 @@ LEAF_KERNEL = _build.Kernel(
 NODE_KERNEL = _build.Kernel(
     "blake2b",
     "node_launch",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     replaces="zk_stark_tpu/ops/blake2b_dev.py:383 (_node_split_kernel)",
 )
+#: the most levels one node launch hashes: a block takes 2^10 children down
+#: to one digest (48 KB of shared memory for its levels); at most
+#: csrc/blake2b.cu node::kMaxSpanLog2 (11)
+TREE_LEVELS = 10
+#: threads a node block of a tree: two parents a thread on a full block's
+#: first level, three blocks an SM (tools/kernel_shape_probe.py node_trees)
+NODE_THREADS = 256
+#: the node kernel asked for one level: blocks of 128 threads, one parent a
+#: thread (tools/kernel_shape_probe.py node_level)
+LEVEL_THREADS = 128
+LEVEL_SPAN_LOG2 = 8
 COMPRESS_KERNEL = _build.Kernel(
     "blake2b",
     "compress_launch",
@@ -236,6 +254,46 @@ def node_digests_plain(level: torch.Tensor) -> torch.Tensor:
     return _words_to_bytes(*compress_plain(mh, ml, t))
 
 
+def tree_plain(leaves: torch.Tensor) -> torch.Tensor:
+    """Leaf digests uint8[n, 64] (n a power of two) -> the inner levels
+    uint8[n - 1, 64], one :func:`node_digests_plain` a level."""
+    levels = [leaves.new_empty((0, 64))]
+    level = leaves
+    while level.shape[0] > 1:
+        level = node_digests_plain(level)
+        levels.append(level)
+    return torch.cat(levels)
+
+
+def level_start(n: int, j: int) -> int:
+    """The row of level j >= 1 (n >> j digests) in a tree's inner levels."""
+    return n - (n >> (j - 1))
+
+
+def tree_launches(n: int) -> list[tuple[int, int]]:
+    """(level, k) of each node launch of a tree of n = 2^L leaves: from
+    level ``level`` (n >> level digests; the leaves are level 0), k levels
+    up.  The fewest launches, ceil(L / TREE_LEVELS), the levels shared out
+    evenly and the first launches the deeper, so that the last launch (one
+    block) takes the fewest children."""
+    depth = n.bit_length() - 1
+    count = -(-depth // TREE_LEVELS)
+    out, level = [], 0
+    for i in range(count):
+        k = depth // count + (i < depth % count)
+        out.append((level, k))
+        level += k
+    return out
+
+
+def split_levels(leaves: torch.Tensor, inner: torch.Tensor) -> list[torch.Tensor]:
+    """[leaves, level 1, ..., root]: the inner levels as views of ``inner``."""
+    n = leaves.shape[0]
+    depth = n.bit_length() - 1
+    return [leaves] + [inner[level_start(n, j) : level_start(n, j + 1)]
+                       for j in range(1, depth + 1)]
+
+
 # -----------------------------------------------------------------------------
 # Kernels and the dispatching entry points
 # -----------------------------------------------------------------------------
@@ -244,23 +302,49 @@ def node_digests_plain(level: torch.Tensor) -> torch.Tensor:
 def leaf_kernel(canon: torch.Tensor) -> torch.Tensor:
     n = canon.shape[0]
     _build.check_cuda_tensor(canon, "leaf canon", L.DTYPE, (n, L.NLIMB))
-    if canon.data_ptr() & 15:  # the kernel's bulk copy reads 16-byte aligned rows
-        canon = canon.clone()
+    canon = _aligned(canon)
     out = torch.empty((n, 64), dtype=torch.uint8, device=canon.device)
     if n:
         LEAF_KERNEL(canon.data_ptr(), out.data_ptr(), n, _build.stream_ptr(canon.device))
     return out
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it starts off the 16-byte grid that the
+    kernels' bulk copies and vector loads read."""
+    return t.clone() if t.data_ptr() & 15 else t
+
+
 def node_kernel(level: torch.Tensor) -> torch.Tensor:
+    """One level: the node kernel asked for one level (blocks of
+    2^LEVEL_SPAN_LOG2 children, the last one partly full)."""
     n = level.shape[0]
     if n % 2:
         raise ValueError(f"node_kernel: odd level size {n}")
     _build.check_cuda_tensor(level, "node level", torch.uint8, (n, 64))
+    level = _aligned(level)
     out = torch.empty((n // 2, 64), dtype=torch.uint8, device=level.device)
     if n:
-        NODE_KERNEL(level.data_ptr(), out.data_ptr(), n // 2, _build.stream_ptr(level.device))
+        NODE_KERNEL(level.data_ptr(), out.data_ptr(), n, LEVEL_SPAN_LOG2, 1, LEVEL_THREADS,
+                    _build.stream_ptr(level.device))
     return out
+
+
+def tree_kernel(leaves: torch.Tensor) -> torch.Tensor:
+    """The node kernel's launches of :func:`tree_launches`; same contract as
+    :func:`tree_plain`."""
+    n = leaves.shape[0]
+    if n < 1 or n & (n - 1) or n > L.MAX_KERNEL_ELEMENTS:
+        raise ValueError(f"tree_kernel: {n} leaves is not a power of two below 2^31")
+    _build.check_cuda_tensor(leaves, "tree leaves", torch.uint8, (n, 64))
+    inner = torch.empty((n - 1, 64), dtype=torch.uint8, device=leaves.device)
+    leaves = _aligned(leaves)
+    stream = _build.stream_ptr(leaves.device)
+    for level, k in tree_launches(n):
+        src = leaves if level == 0 else inner[level_start(n, level)]
+        NODE_KERNEL(src.data_ptr(), inner[level_start(n, level + 1)].data_ptr(), n >> level,
+                    k, k, NODE_THREADS, stream)
+    return inner
 
 
 def leaf_digests(canon: torch.Tensor) -> torch.Tensor:
@@ -277,6 +361,15 @@ def node_digests(level: torch.Tensor) -> torch.Tensor:
         return node_kernel(level)
     _build.check_device(level, "node_digests")
     return node_digests_plain(level)
+
+
+def tree_digests(leaves: torch.Tensor) -> torch.Tensor:
+    """Leaf digests uint8[n, 64] (n a power of two) -> the inner levels
+    uint8[n - 1, 64]: level 1 first, the root last."""
+    if leaves.is_cuda:
+        return tree_kernel(leaves)
+    _build.check_device(leaves, "tree_digests")
+    return tree_plain(leaves)
 
 
 def compress_kernel(mh: torch.Tensor, ml: torch.Tensor, t: torch.Tensor):

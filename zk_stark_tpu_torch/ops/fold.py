@@ -7,8 +7,10 @@ elements, with ``lo = cw[:n/2]`` and ``hi = cw[n/2:]``::
     folded = 2^-1 * ((lo + hi) + (alpha/offset) * w^-i * (lo - hi))
     canon  = REDC(folded)          (the next round's Merkle leaves)
 
-On a CUDA tensor :func:`fold_round` launches ``csrc/fold.cu`` (one thread
-per output element); on a CPU tensor it runs :func:`fold_plain`.
+On a CUDA tensor :func:`fold_round` launches ``csrc/fold.cu`` (persistent
+blocks over bulk-copied tiles of output elements; an operand that starts
+off the 16-byte grid is copied first and counted in ``limbs.copies``); on
+a CPU tensor it runs :func:`fold_plain`.
 """
 
 from __future__ import annotations
@@ -46,10 +48,20 @@ def fold_kernel(cw, invpows, ao, two_inv):
     half = n // 2
     if n < 2 or n % 2:
         raise ValueError(f"fold_kernel: codeword length {n} is not even")
+    if half > L.MAX_KERNEL_ELEMENTS:
+        raise ValueError(f"fold_kernel: {half} outputs, the kernel indexes at most "
+                         f"{L.MAX_KERNEL_ELEMENTS}")
     _build.check_cuda_tensor(cw, "fold cw", L.DTYPE, (n, L.NLIMB))
     _build.check_cuda_tensor(invpows, "fold invpows", L.DTYPE, (half, L.NLIMB))
     _build.check_cuda_tensor(ao, "fold ao", L.DTYPE, (L.NLIMB,))
     _build.check_cuda_tensor(two_inv, "fold two_inv", L.DTYPE, (L.NLIMB,))
+    operands = []
+    for t in (cw, invpows, ao, two_inv):
+        if t.data_ptr() & 15:  # the bulk copies and vector loads read 16-byte aligned rows
+            t = t.clone()
+            L.copies += 1
+        operands.append(t)
+    cw, invpows, ao, two_inv = operands
     folded = torch.empty((half, L.NLIMB), dtype=L.DTYPE, device=cw.device)
     canon = torch.empty_like(folded)
     FOLD_KERNEL(

@@ -12,9 +12,22 @@ and where a pass of ``csrc/ntt.cu`` spends its time:
 - ``rescue_blocks``: the Rescue kernel at 256, 2^14 and 2^20 states in
   blocks of 32 to 256 threads (each result bit for bit the default's);
 - ``carry_flag``: what ``addc`` reads after ``sub.cc`` (the reason
-  ``csrc/field.cuh`` never lets an addition read a subtraction's flag).
+  ``csrc/field.cuh`` never lets an addition read a subtraction's flag);
+- ``node_trees``: the node kernel's trees (``ops/blake2b.py``
+  ``tree_kernel``) of 2^12 and 2^20 leaves at other most-levels-a-launch
+  (``TREE_LEVELS``, 8 to 11) and block widths (``NODE_THREADS``, 64 to
+  256), whole and launch by launch, queued (each result bit for bit the
+  default's);
+- ``node_builds``: ``csrc/blake2b.cu`` as it is and in builds whose
+  launch bounds ask for other block widths and blocks an SM (the register
+  cap) or whose narrow levels run four lanes a parent below other widths,
+  or never: each build's registers and spills, its 2^12- and 2^20-leaf
+  trees (the latter also launch by launch) and one level of 2^19 parents,
+  queued;
+- ``node_level``: one level of 2^19 parents (``node_kernel``'s form) in
+  blocks of 2^8 to 2^11 children and 128 or 256 threads, queued.
 
-    python -m zk_stark_tpu_torch.tools.kernel_shape_probe
+    python -m zk_stark_tpu_torch.tools.kernel_shape_probe [SECTION ...]
 
 runs on the card (and raises without one) and prints one line a
 measurement, then one JSON object.  The variant builds go to
@@ -35,6 +48,7 @@ import torch
 from ..field import Field
 from ..models.rescue_prime import RescuePrime
 from ..ops import _build
+from ..ops import blake2b as B
 from ..ops import limbs as L
 from ..ops import ntt as N
 from ..ops import rescue_ops as R
@@ -44,6 +58,29 @@ NTT_SIZES = (1 << 12, 1 << 20, 1 << 24, 1 << 25)
 #: (TILE_ELEMS, BLOCK_THREADS) pairs beside the default
 TILES = ((1 << 10, 256), (1 << 10, 512), (1 << 11, 256), (1 << 11, 512), (1 << 12, 512),
          (1 << 12, 1024), (1 << 13, 1024))
+#: (TREE_LEVELS, NODE_THREADS) pairs of the node trees, the default among them
+TREE_SHAPES = tuple((k, t) for k in (8, 9, 10, 11) for t in (64, 128, 256))
+TREE_SIZES = (1 << 12, 1 << 20)
+_BOUNDS = "constexpr int kMaxThreads = 256;\nconstexpr int kMinBlocks = 3;"
+_NARROW = "(threads & 3) == 0 && 4 * parents <= threads"
+#: builds of csrc/blake2b.cu beside the source as it is: name -> (threads a
+#: block, the text that replaces _BOUNDS or _NARROW).  The launch bounds
+#: (node::kMaxThreads, kMinBlocks) set the register cap, from 128 registers
+#: a thread (256 x 2) to 64 (256 x 4); the narrow-level test sets which
+#: levels run four lanes a parent (at most 64, 32, 16 or 8 parents of 256
+#: threads, or none)
+NODE_BUILDS = {
+    "bounds 256 x 2": (256, _BOUNDS, "constexpr int kMaxThreads = 256;\nconstexpr int kMinBlocks = 2;"),
+    "bounds 256 x 4": (256, _BOUNDS, "constexpr int kMaxThreads = 256;\nconstexpr int kMinBlocks = 4;"),
+    "bounds 128 x 6": (128, _BOUNDS, "constexpr int kMaxThreads = 128;\nconstexpr int kMinBlocks = 6;"),
+    "bounds 128 x 7": (128, _BOUNDS, "constexpr int kMaxThreads = 128;\nconstexpr int kMinBlocks = 7;"),
+    "four lanes at most 32 parents": (256, _NARROW, "(threads & 3) == 0 && 8 * parents <= threads"),
+    "four lanes at most 16 parents": (256, _NARROW, "(threads & 3) == 0 && 16 * parents <= threads"),
+    "four lanes at most 8 parents": (256, _NARROW, "(threads & 3) == 0 && 32 * parents <= threads"),
+    "one lane a parent": (256, _NARROW, "false"),
+}
+#: children a block takes for one level of 2^19 parents, and its threads
+LEVEL_SPANS = tuple((k, t) for k in (8, 9, 10, 11) for t in (128, 256))
 RESCUE_SIZES = (256, 1 << 14, 1 << 20)
 RESCUE_THREADS = (32, 64, 128, 256)
 
@@ -70,18 +107,24 @@ extern "C" int carry_launch(void* out, uint32_t a, uint32_t b) {
 
 def _build_variant(name: str, source: str) -> ctypes.CDLL:
     """Compile ``source`` (beside copies of the csrc headers) like the
-    package's libraries and load it."""
+    package's libraries and load it; its ptxas report is in ``lib.ptxas``
+    (empty if it was built before)."""
     key = hashlib.sha256(source.encode() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
     work = _build.BUILD / f"probe_{name}_{key}"
     so = work / f"lib{name}.so"
+    log = ""
     if not so.exists():
         work.mkdir(parents=True, exist_ok=True)
         for header in _build.CSRC.glob("*.cuh"):
             shutil.copy(header, work / header.name)
         (work / f"{name}.cu").write_text(source)
-        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(work / f"{name}.cu")],
-                       check=True, capture_output=True, text=True, timeout=600)
-    return ctypes.CDLL(str(so))
+        done = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),
+                               str(work / f"{name}.cu")],
+                              check=True, capture_output=True, text=True, timeout=600)
+        log = done.stdout + done.stderr
+    lib = ctypes.CDLL(str(so))
+    lib.ptxas = log
+    return lib
 
 
 def _random(n: int, gen: torch.Generator, dev) -> torch.Tensor:
@@ -184,6 +227,130 @@ def rescue_blocks(dev, gen) -> list:
     return rows
 
 
+def node_trees(dev, gen) -> list:
+    default = (B.TREE_LEVELS, B.NODE_THREADS)
+    rows = []
+    try:
+        for n in TREE_SIZES:
+            leaves = B.leaf_kernel(L.redc_kernel(_random(n, gen, dev)))
+            ref = B.tree_kernel(leaves)
+            for k, threads in TREE_SHAPES:
+                B.TREE_LEVELS, B.NODE_THREADS = k, threads
+                inner = B.tree_kernel(leaves)
+                if not torch.equal(inner, ref):
+                    raise RuntimeError(f"node_trees: {k} levels, {threads} threads differ at n={n}")
+                ms = M.time_ms(lambda: B.tree_kernel(leaves), queued=True)
+                launch_ms = []
+                for level, levels in B.tree_launches(n):
+                    src = leaves if level == 0 else inner[B.level_start(n, level)]
+                    dst = inner[B.level_start(n, level + 1)]
+                    launch_ms.append(M.time_ms(
+                        lambda: B.NODE_KERNEL(src.data_ptr(), dst.data_ptr(), n >> level, levels,
+                                              levels, threads, _build.stream_ptr(dev)),
+                        queued=True))
+                plan = [levels for _, levels in B.tree_launches(n)]
+                rows.append(dict(n=n, tree_levels=k, threads=threads, plan=plan, ms=ms,
+                                 launch_ms=launch_ms))
+                print(f"node tree n={n} levels a launch <= {k} {plan} threads={threads}: {ms:.5f} "
+                      f"ms queued, launches {', '.join(f'{t:.5f}' for t in launch_ms)}", flush=True)
+                B.TREE_LEVELS, B.NODE_THREADS = default
+            del leaves, ref
+    finally:
+        B.TREE_LEVELS, B.NODE_THREADS = default
+    return rows
+
+
+def _kernel_report(log: str, kernel: str) -> str:
+    """ptxas's registers and spills of ``kernel`` in a build's report."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if line.rstrip().endswith(f"'{kernel}' for 'sm_90a'"):
+            return " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 3])
+    return "not rebuilt"
+
+
+def node_builds(dev, gen) -> list:
+    src = (_build.CSRC / "blake2b.cu").read_text()
+    for piece in (_BOUNDS, _NARROW):
+        if piece not in src:
+            raise RuntimeError(f"node_builds: csrc/blake2b.cu no longer has {piece!r}")
+    stream = _build.stream_ptr(dev)
+    inputs = {n: B.leaf_kernel(L.redc_kernel(_random(n, gen, dev))) for n in TREE_SIZES}
+    refs = {n: B.tree_kernel(leaves) for n, leaves in inputs.items()}
+    wide = inputs[1 << 20]
+    wide_ref = B.node_kernel(wide)
+    rows = []
+    builds = {"as it is": (B.NODE_THREADS, _BOUNDS, _BOUNDS), **NODE_BUILDS}
+    for name, (threads, old, new) in builds.items():
+        tag = hashlib.sha256(name.encode()).hexdigest()[:8]
+        lib = _build_variant(f"blake2b_{tag}", src.replace(old, new))
+        fn = lib.node_launch
+        fn.argtypes, fn.restype = B.NODE_KERNEL.argtypes, ctypes.c_int
+
+        def launch(src_t, dst_t, m, span_log2, levels):
+            rc = fn(src_t.data_ptr(), dst_t.data_ptr(), m, span_log2, levels, threads, stream)
+            if rc:
+                raise RuntimeError(f"node_builds: {name} failed to launch: error {rc}")
+
+        def tree(n, inner):
+            for level, k in B.tree_launches(n):
+                src_t = inputs[n] if level == 0 else inner[B.level_start(n, level)]
+                launch(src_t, inner[B.level_start(n, level + 1)], n >> level, k, k)
+
+        row = dict(build=name, threads=threads, ptxas=_kernel_report(lib.ptxas, "node_kernel"))
+        for n in TREE_SIZES:
+            inner = torch.empty_like(refs[n])
+            tree(n, inner)
+            if not torch.equal(inner, refs[n]):
+                raise RuntimeError(f"node_builds: {name} differs at n={n}")
+            row[f"tree_{n}_ms"] = M.time_ms(lambda: tree(n, inner), queued=True)
+        level = torch.empty_like(wide_ref)
+
+        def one_level():  # as node_kernel asks for it
+            rc = fn(wide.data_ptr(), level.data_ptr(), wide.shape[0], B.LEVEL_SPAN_LOG2, 1,
+                    min(threads, B.LEVEL_THREADS), stream)
+            if rc:
+                raise RuntimeError(f"node_builds: {name} failed to launch one level: error {rc}")
+
+        one_level()
+        if not torch.equal(level, wide_ref):
+            raise RuntimeError(f"node_builds: {name} differs on one level")
+        row["level_ms"] = M.time_ms(one_level, queued=True)
+        n = 1 << 20
+        inner = torch.empty_like(refs[n])
+        row["tree_launch_ms"] = []
+        for lvl, k in B.tree_launches(n):
+            src_t = inputs[n] if lvl == 0 else refs[n][B.level_start(n, lvl)]
+            row["tree_launch_ms"].append(M.time_ms(
+                lambda: launch(src_t, inner[B.level_start(n, lvl + 1)], n >> lvl, k, k),
+                queued=True))
+        rows.append(row)
+        print(f"node build {name}, {threads} threads ({row['ptxas']}): tree 4096 "
+              f"{row['tree_4096_ms']:.5f} ms, tree 1048576 {row['tree_1048576_ms']:.5f} ms "
+              f"(launches {', '.join(f'{t:.5f}' for t in row['tree_launch_ms'])}), one level "
+              f"of 524288 parents {row['level_ms']:.5f} ms", flush=True)
+    return rows
+
+
+def node_level(dev, gen) -> list:
+    wide = B.leaf_kernel(L.redc_kernel(_random(1 << 20, gen, dev)))
+    ref = B.node_kernel(wide)
+    out = torch.empty_like(ref)
+    rows = []
+    for span_log2, threads in LEVEL_SPANS:
+        def call():
+            B.NODE_KERNEL(wide.data_ptr(), out.data_ptr(), wide.shape[0], span_log2, 1, threads,
+                          _build.stream_ptr(dev))
+        call()
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"node_level: span 2^{span_log2}, {threads} threads differ")
+        ms = M.time_ms(call, queued=True)
+        rows.append(dict(span_log2=span_log2, threads=threads, ms=ms))
+        print(f"node one level of 524288 parents, blocks of 2^{span_log2} children and {threads} "
+              f"threads: {ms:.5f} ms queued", flush=True)
+    return rows
+
+
 def carry_flag(dev) -> list:
     lib = _build_variant("carry", _CARRY)
     lib.carry_launch.argtypes = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32]
@@ -199,18 +366,31 @@ def carry_flag(dev) -> list:
     return rows
 
 
-def run(device="cuda") -> dict:
+SECTIONS = {
+    "carry_flag": lambda dev, gen: carry_flag(dev),
+    "rescue_blocks": rescue_blocks,
+    "ntt_tiles": ntt_tiles,
+    "ntt_split": ntt_split,
+    "node_trees": node_trees,
+    "node_builds": node_builds,
+    "node_level": node_level,
+}
+
+
+def run(device="cuda", sections=None) -> dict:
+    """The named sections (all by default), one after another."""
     dev = torch.device(device)
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("kernel_shape_probe: needs a CUDA card")
     gen = torch.Generator().manual_seed(17)
-    return {"card": M.card_line(), "carry_flag": carry_flag(dev),
-            "rescue_blocks": rescue_blocks(dev, gen), "ntt_tiles": ntt_tiles(dev, gen),
-            "ntt_split": ntt_split(dev, gen)}
+    out = {"card": M.card_line()}
+    for name in sections or SECTIONS:
+        out[name] = SECTIONS[name](dev, gen)
+    return out
 
 
 def main() -> int:
-    print(json.dumps(run()))
+    print(json.dumps(run(sections=sys.argv[1:])))
     return 0
 
 

@@ -1,5 +1,6 @@
-"""Device times of the limb kernels and the BLAKE2b kernels at the sizes the
-main paths give them, to compare two checkouts on one card in one call.
+"""Device times of the limb kernels, the BLAKE2b kernels and the fold at the
+sizes the main paths give them, to compare two checkouts on one card in one
+call.
 
     python3 zk_stark_tpu_torch/tools/kernel_times.py [--root CHECKOUT]
 
@@ -8,10 +9,14 @@ that holds this file), so that the same script times an earlier commit and
 a change with the same method and the same inputs: every time is queued
 (``measure.time_ms(queued=True)``: the card sleeps while the host enqueues
 the calls), the median of 5 runs of 20 calls (3 of 5 calls at 2^25).  It
-uses only entry points that every commit since the limb kernel has:
-``ops.limbs`` ``*_kernel``, ``ops.blake2b`` ``leaf_kernel`` /
-``node_kernel`` / ``compress_kernel``.  Prints the card line and one JSON
-line; needs a card.
+uses only entry points that every commit since the limb kernel has
+(``ops.limbs`` ``*_kernel``; ``ops.blake2b`` ``leaf_kernel``,
+``node_kernel`` for one level, ``compress_kernel``; ``ops.fold``
+``fold_kernel``), and ``ops.blake2b.tree_kernel`` where the checkout has
+it: a tree of 2^12 and of 2^20 leaves is timed whole, by ``tree_kernel``
+or else by ``node_kernel`` one level at a time (behind a longer sleep of
+the card, since one launch a level takes longer on the host than on the
+card).  Prints the card line and one JSON line; needs a card.
 """
 
 from __future__ import annotations
@@ -19,7 +24,12 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import statistics
 import sys
+
+#: clock cycles the card sleeps a tree call before its timed calls: ~2 ms
+#: at the H100's ~2 GHz, more than 20 host launches
+TREE_SLEEP_CYCLES = 4_000_000
 
 
 def main() -> int:
@@ -34,6 +44,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
     from zk_stark_tpu_torch.ops import blake2b as B
+    from zk_stark_tpu_torch.ops import fold as FO
     from zk_stark_tpu_torch.ops import limbs as L
     from zk_stark_tpu_torch.tools.measure import card_line, time_ms
 
@@ -49,7 +60,26 @@ def main() -> int:
         reps, runs = (5, 3) if n >= 1 << 24 else (20, 5)
         return time_ms(fn, reps=reps, runs=runs, queued=True)
 
-    out = {"root": str(args.root.resolve()), "limbs": {}, "leaf": {}, "node": {}}
+    def tree_timed(fn, reps=20, runs=5):
+        """Queued as time_ms queues, behind a sleep long enough for a tree's
+        host time (one launch a level is ~20 us of host time each, more than
+        a narrow level's device time)."""
+        fn()
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(TREE_SLEEP_CYCLES * reps)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            samples.append(start.elapsed_time(end) / reps)
+        return statistics.median(samples)
+
+    out = {"root": str(args.root.resolve()), "limbs": {}, "leaf": {}, "node": {}, "fold": {}}
     for n in (1 << 12, 1 << 20, 1 << 25):
         a, b = field(n), field(n)
         out["limbs"][n] = {
@@ -60,17 +90,25 @@ def main() -> int:
             "redc": timed(lambda: L.redc_kernel(a), n),
         }
         del a, b
+
+    def level_loop(leaves):  # one node_kernel launch a level
+        level = leaves
+        while level.shape[0] > 1:
+            level = B.node_kernel(level)
+
+    tree = getattr(B, "tree_kernel", None) or level_loop
     for n in (1 << 12, 1 << 20):
         canon = L.redc_kernel(field(n))
         out["leaf"][n] = timed(lambda: B.leaf_kernel(canon), n)
-        level = B.leaf_kernel(canon)
-        levels = []
-        while level.shape[0] > 1:
-            cur = level
-            levels.append(timed(lambda: B.node_kernel(cur), n))
-            level = B.node_kernel(level)
-        out["node"][n] = {"parents": n // 2, "ms": levels[0], "tree_ms": sum(levels),
-                          "levels_ms": levels}
+        leaves = B.leaf_kernel(canon)
+        launches = B.NODE_KERNEL.launches
+        tree(leaves)
+        out["node"][n] = {"parents": n // 2, "tree": tree.__name__,
+                          "tree_launches": B.NODE_KERNEL.launches - launches,
+                          "ms": timed(lambda: B.node_kernel(leaves), n),
+                          "tree_ms": tree_timed(lambda: tree(leaves))}
+        cw, invpows, ao = field(n), field(n // 2), field(1)[0]
+        out["fold"][n] = timed(lambda: FO.fold_kernel(cw, invpows, ao, ao), n)
     m = 1 << 18
     words = torch.randint(0, 1 << 32, (2, 16, m), dtype=L.DTYPE, generator=gen).to(dev)
     t = torch.full((m,), 128, dtype=L.DTYPE, device=dev)
