@@ -23,7 +23,12 @@ runs (run_plain):
    beside the bytes bound, the plain
    version's at 2^25, the host time of a call against the tensor code's,
    and one profiled call of each op (one launch of its kernel, nothing
-   else);
+   else); then the inversion (mont_inv_fermat: a^(p-2) by a fixed
+   addition chain, one thread an element) bit for bit against its plain
+   version and Python integers on 0, 1, p-1, p-2, one element and 2^14
+   random elements, timed at 1 and 2^14 beside its bound, and batch_inv
+   at 1, 7, 4096 and 2^20 elements on the card (one inversion launch, no
+   REDC) against its CPU path;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with both times (CUDA events, median; the leaf, fold and node also
    queued): first the leaf on one value of every decimal length (against
@@ -45,19 +50,31 @@ runs (run_plain):
 5. the RPSSS path: keygen -> sign -> verify at the default config
    (expansion 4, 64 checks, security 128), cold and then warm, with every
    kernel's launch count reset just before the warm sign and read just
-   after it; the proof is 1,156,888 bytes, verifies, and a wrong document
-   is rejected; then one more sign and verify under torch.profiler (stage
-   host times, device busy time and idle share, device time by kernel;
-   the node and fold kernels' device time beside the bound of the trees
-   and folds the sign made);
+   after it (the segments' graph replays count the launches they make);
+   the proof is 1,156,888 bytes, verifies, and a wrong document is
+   rejected; the capture time and graph pool of each segment the cold
+   sign and verify captured, the Python kernel calls and replays of the
+   warm sign and verify (at most MAX_SIGN_CALLS calls beside the
+   replays); then one more sign and verify under torch.profiler (stage
+   host times, device busy time and idle share, device time by kernel,
+   the kernels inside graph replays included, and how many of the
+   counted launches the profiler saw; the node and fold kernels' device
+   time beside the bound of the trees and folds the sign made);
 6. the chain fixture (tests/fixtures/chain_meta.json, FRI 2^14) reproduced
    byte for byte on the card; it verifies and a wrong output is rejected;
 7. the chain path: the Rescue-permutation chain of length 3200 (FRI 2^20):
    host trace, one cold prove, one warm prove with every kernel's launch
    count reset just before and read just after (and two more warm proves
-   for the median time), one verify, one verify against a wrong output
-   that must be rejected; the proof is 3,430,752 bytes; then one more warm
-   prove under torch.profiler;
+   for the median time), one cold verify (it captures the verifier's
+   segments) and one warm, one verify against a wrong output that must be
+   rejected; the proof is 3,430,752 bytes; the segments the
+   cold prove captured and the warm prove's Python kernel calls and
+   replays; then one more warm prove under torch.profiler;
+7a. the segments: a default-config sign through replayed segments equals
+   byte for byte the sign from the same rng with every segment's body
+   called directly on the card; two signs of other documents interleaved
+   with their verifies (each true, a wrong document rejected); phases 4
+   and 6 again, now replaying (no new capture); then the caches cleared;
 7b. the long transforms: ntt_mont and intt_mont at 2^21, 2^22, 2^24 (the
    four-step) and 2^25 (the three-pass split), then one low-degree
    extension (fast_coset_evaluate: 2^23 coefficients on a 2^25-point
@@ -98,6 +115,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import pathlib
@@ -113,14 +131,16 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from zk_stark_tpu_torch import segments  # noqa: E402
 from zk_stark_tpu_torch.carry import DetRng, chain_from_config, rpsss_from_config  # noqa: E402
 from zk_stark_tpu_torch.field import Field  # noqa: E402
+from zk_stark_tpu_torch.fri import FRI  # noqa: E402
 from zk_stark_tpu_torch.merkle import MerkleTree  # noqa: E402
 from zk_stark_tpu_torch.models.rescue_chain import make_chain_stark  # noqa: E402
 from zk_stark_tpu_torch.models.rescue_prime import RescuePrime  # noqa: E402
 from zk_stark_tpu_torch.models.rpsss import RPSSS  # noqa: E402
 from zk_stark_tpu_torch.proof_stream import ProofStream  # noqa: E402
-from zk_stark_tpu_torch.stark import VerificationError  # noqa: E402
+from zk_stark_tpu_torch.stark import Stark, VerificationError  # noqa: E402
 from zk_stark_tpu_torch.ops import _build  # noqa: E402
 from zk_stark_tpu_torch.ops import blake2b as B  # noqa: E402
 from zk_stark_tpu_torch.ops import fold as FO  # noqa: E402
@@ -209,6 +229,18 @@ LIMB_TAIL_SIZES = (1, 31, 257, 4097)
 LIMB_EDGES = (0, 1, L.P - 1, L.P - 2, L.R_INT)
 #: unsynchronised calls timed on the host clock for the host cost of a call
 HOST_CALLS = 1000
+#: the inversion's element counts: batch_inv's root (its only call on the
+#: paths) and a batch that fills 16,384 threads; batch_inv's sizes
+INV_SIZES = (1, 1 << 14)
+BATCH_INV_SIZES = (1, 7, 4096, 1 << 20)
+#: products of csrc/limbs.cu inv_fermat's addition chain: 132 squarings
+#: and 24 products
+INV_PRODUCTS = 132 + 24
+#: most Python kernel calls a warm sign may make beside its segments'
+#: replays (the commitment and FRI trees, the folds, one REDC)
+MAX_SIGN_CALLS = 60
+#: the device names of the kernels a proof launches (csrc/*.cu)
+PORT_KERNEL_NAMES = ("limbs_", "ntt_stages_kernel", "fold_kernel", "leaf_kernel", "node_kernel")
 
 
 def require(cond, message: str) -> None:
@@ -530,13 +562,37 @@ def fixture_phase(dev) -> None:
           "tampered copies rejected", flush=True)
 
 
+def python_calls() -> int:
+    """Calls from Python of every kernel so far (a graph replay makes none)."""
+    return sum(k.calls for k in _build.Kernel.instances)
+
+
+def cached_segments() -> dict:
+    """Every cached segment: the prover's and verifier's (Stark) and the
+    FRI's last-codeword check's, by (cache, key)."""
+    return {**{("stark",) + k: seg for k, seg in Stark._SEG_CACHE.items()},
+            **{("fri",) + k: seg for k, seg in FRI._LOWDEG_CACHE.items()}}
+
+
+def captures_since(before: dict) -> list:
+    """The segments captured since ``before`` (cached_segments()): name,
+    capture ms and the device memory the capture reserved (its graph's
+    pool)."""
+    return [{"name": seg.name, "capture_ms": seg.capture_ms, "pool_gb": seg.pool_bytes / 1e9}
+            for key, seg in cached_segments().items()
+            if key not in before and seg.graph is not None]
+
+
 def main_path(dev, kernels) -> tuple[dict, tuple]:
-    """Phase 5: default-config keygen -> sign -> verify, cold then warm."""
+    """Phase 5: default-config keygen -> sign -> verify, cold (capturing the
+    configuration's segments) then warm (replaying them)."""
     doc = b"attack at dawn"
     rpsss = RPSSS(Field(), device=dev, rng=DetRng(b"chip-smoke"))
     sk, pk = rpsss.keygen()
 
+    before = cached_segments()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sig_cold = rpsss.sign(sk, doc)
     torch.cuda.synchronize()
@@ -545,10 +601,13 @@ def main_path(dev, kernels) -> tuple[dict, tuple]:
     ok_cold = rpsss.verify(pk, doc, sig_cold)
     torch.cuda.synchronize()
     verify_cold_ms = (time.perf_counter() - t0) * 1e3
+    captures = captures_since(before)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     for k in kernels:
         k.launches = 0
     copies = L.copies
+    calls, replays = python_calls(), segments.replays
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sig = rpsss.sign(sk, doc)
@@ -556,11 +615,14 @@ def main_path(dev, kernels) -> tuple[dict, tuple]:
     sign_ms = (time.perf_counter() - t0) * 1e3
     launches = {k.name: k.launches for k in kernels}
     copies = L.copies - copies
+    sign_calls, sign_replays = python_calls() - calls, segments.replays - replays
 
+    calls, replays = python_calls(), segments.replays
     t0 = time.perf_counter()
     ok = rpsss.verify(pk, doc, sig)
     torch.cuda.synchronize()
     verify_ms = (time.perf_counter() - t0) * 1e3
+    verify_calls, verify_replays = python_calls() - calls, segments.replays - replays
 
     require(len(sig_cold) == MAIN_PROOF_BYTES, f"cold proof is {len(sig_cold)} B")
     require(len(sig) == MAIN_PROOF_BYTES, f"proof is {len(sig)} B")
@@ -568,9 +630,18 @@ def main_path(dev, kernels) -> tuple[dict, tuple]:
     require(not rpsss.verify(pk, b"attack at dusk", sig), "wrong document accepted")
     for name, count in launches.items():
         require(count > 0, f"kernel {name} was not launched by the sign")
+    require(sorted(c["name"] for c in captures) == ["lowdeg", "seg1", "seg2", "verify_seg"],
+            f"the cold sign and verify captured {[c['name'] for c in captures]}")
+    require(sign_replays == 2 and verify_replays == 2,
+            f"{sign_replays} replays a warm sign, {verify_replays} a verify (2 each expected)")
+    require(sign_calls <= MAX_SIGN_CALLS,
+            f"a warm sign made {sign_calls} Python kernel calls (at most {MAX_SIGN_CALLS})")
     result = dict(sign_ms=sign_ms, verify_ms=verify_ms, sign_cold_ms=cold_ms,
                   verify_cold_ms=verify_cold_ms, proof_bytes=len(sig),
-                  launches=launches, limb_operand_copies=copies)
+                  launches=launches, limb_operand_copies=copies,
+                  sign_python_kernel_calls=sign_calls, sign_replays=sign_replays,
+                  verify_python_kernel_calls=verify_calls, verify_replays=verify_replays,
+                  captures=captures, cold_peak_gb=peak_gb)
     print("main path " + json.dumps(result), flush=True)
     return result, (rpsss, sk, pk, doc)
 
@@ -607,6 +678,8 @@ def profiled(fn) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    launches0 = [k.launches for k in _build.Kernel.instances]
+    replays0 = segments.replays
     torch.cuda.synchronize()
     with recorded_shapes() as shapes, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -632,7 +705,19 @@ def profiled(fn) -> dict:
         hits = [v for k, v in by_kernel.items() if k.startswith(prefix)]
         return [sum(ms for ms, _ in hits), sum(c for _, c in hits)]
 
+    # the kernels inside graph replays reach the trace only if the profiler
+    # attributes them: compare with the launches the counts recorded
+    counted = sum(k.launches - c for k, c in zip(_build.Kernel.instances, launches0))
+    seen = sum(share(prefix)[1] for prefix in PORT_KERNEL_NAMES)
+    replays = segments.replays - replays0
+    if seen != counted:
+        print(f"profile: the profiler saw {seen} of the {counted} counted launches of the "
+              f"port's kernels ({replays} graph replays): the device time by kernel below "
+              "misses the rest", flush=True)
     return {
+        "kernel_launches_counted": counted,
+        "kernel_launches_seen": seen,
+        "replays": replays,
         "wall_ms": wall_ms,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
@@ -721,14 +806,18 @@ def chain_path(dev, kernels) -> dict:
         torch.cuda.synchronize()
         return proof, (time.perf_counter() - t0) * 1e3
 
+    before = cached_segments()
     torch.cuda.reset_peak_memory_stats()
     proof_cold, cold_ms = prove()
+    cold_captures = captures_since(before)
     for k in kernels:
         k.launches = 0
     copies = L.copies
+    calls, replays = python_calls(), segments.replays
     proof, warm_ms = prove()
     launches = {k.name: k.launches for k in kernels}
     copies = L.copies - copies
+    prove_calls, prove_replays = python_calls() - calls, segments.replays - replays
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # two more warm proves: host time on a shared machine spreads
     warm_runs = [warm_ms] + [prove()[1] for _ in range(2)]
@@ -737,8 +826,12 @@ def chain_path(dev, kernels) -> dict:
     t0 = time.perf_counter()
     ok = not rejects(stark, air, boundary, proof)
     torch.cuda.synchronize()
-    verify_ms = (time.perf_counter() - t0) * 1e3
+    verify_cold_ms = (time.perf_counter() - t0) * 1e3  # it captures the verifier's segments
     verify_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    ok = ok and not rejects(stark, air, boundary, proof)
+    torch.cuda.synchronize()
+    verify_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     wrong_rejected = rejects(stark, air, model.boundary_constraints(y + 1), proof)
     torch.cuda.synchronize()
@@ -750,17 +843,101 @@ def chain_path(dev, kernels) -> dict:
     require(wrong_rejected, "chain proof accepted for a wrong output")
     for name, count in launches.items():
         require(count > 0, f"kernel {name} was not launched by the chain prove")
+    require(sorted(c["name"] for c in cold_captures) == ["seg1", "seg2"] and prove_replays == 2,
+            f"the cold chain prove captured {[c['name'] for c in cold_captures]}, the warm one "
+            f"replayed {prove_replays} segments")
     result = dict(chain_length=CHAIN_LENGTH, fri_domain_length=stark.fri.domain_length,
                   trace_host_ms=trace_ms, prove_cold_ms=cold_ms,
                   prove_ms=statistics.median(warm_runs), prove_ms_runs=warm_runs,
-                  verify_ms=verify_ms, verify_wrong_output_ms=verify_wrong_ms,
+                  verify_cold_ms=verify_cold_ms, verify_ms=verify_ms,
+                  verify_wrong_output_ms=verify_wrong_ms,
                   proof_bytes=len(proof), prove_peak_gb=peak_gb,
                   verify_peak_gb=verify_peak_gb, launches=launches,
-                  limb_operand_copies=copies)
+                  limb_operand_copies=copies, prove_python_kernel_calls=prove_calls,
+                  prove_replays=prove_replays, captures=captures_since(before))
     print("chain path " + json.dumps(result), flush=True)
     result["profile"] = profiled(
         lambda: stark.prove(trace, air, boundary, ProofStream(stark.field)))
     print(json.dumps({"chain_profile": result["profile"]}), flush=True)
+    return result
+
+
+@contextlib.contextmanager
+def bodies_called_directly(dev):
+    """While active, every segment the prover, verifier and FRI ask for is a
+    new segment's body called directly on the card (its inputs moved there):
+    no capture and no replay.  Only to hold the replays against."""
+    def direct(cache, key, build):
+        body = build().body
+
+        def call(*args):
+            return body(*[a.to(dev) if isinstance(a, torch.Tensor) else [t.to(dev) for t in a]
+                          for a in args])
+        return call
+
+    cache_get = segments.cache_get
+    segments.cache_get = direct
+    try:
+        yield
+    finally:
+        segments.cache_get = cache_get
+
+
+def segment_phase(dev) -> dict:
+    """Phase 7a: a default-config sign through replayed segments against the
+    sign from the same rng with the bodies called directly on the card, byte
+    for byte; two signs of other documents interleaved with their verifies;
+    the fixture and chain fixture phases again, now replaying (no capture);
+    then the caches cleared (their graphs' pools freed)."""
+    doc, tag = b"attack at dawn", b"chip-smoke-segments"
+
+    def signer():
+        rpsss = RPSSS(Field(), device=dev, rng=DetRng(tag))
+        return (rpsss, *rpsss.keygen())
+
+    rpsss, sk, pk = signer()
+    replays = segments.replays
+    with bodies_called_directly(dev):
+        direct = rpsss.sign(sk, doc)
+        require(rpsss.verify(pk, doc, direct), "the bodies' signature rejected")
+    require(segments.replays == replays, "a segment replayed while the bodies ran directly")
+    rpsss, sk, pk = signer()
+    before, replays = cached_segments(), segments.replays
+    sig = rpsss.sign(sk, doc)
+    sign_replays = segments.replays - replays
+    require(sign_replays == 2 and not captures_since(before),
+            f"the sign replayed {sign_replays} segments and captured "
+            f"{[c['name'] for c in captures_since(before)]}")
+    require(sig == direct, "the replayed segments' signature differs from the bodies'")
+    require(rpsss.verify(pk, doc, sig), "the replayed segments' signature rejected")
+
+    docs = (b"first document", b"second document")
+    sigs = []
+    for d in docs:
+        sigs.append(rpsss.sign(sk, d))
+        require(rpsss.verify(pk, d, sigs[-1]), f"signature of {d!r} rejected")
+    require(rpsss.verify(pk, docs[0], sigs[0]), "the first signature rejected after the second")
+    require(not rpsss.verify(pk, docs[1], sigs[0]) and not rpsss.verify(pk, docs[0], sigs[1]),
+            "a signature verified against the other document")
+
+    for phase in (fixture_phase, chain_fixture_phase):
+        before, replays = cached_segments(), segments.replays
+        phase(dev)
+        require(not captures_since(before) and segments.replays > replays,
+                f"{phase.__name__} again: captured {[c['name'] for c in captures_since(before)]}"
+                f", {segments.replays - replays} replays")
+    reserved = torch.cuda.memory_reserved() / 1e9
+    Stark._SEG_CACHE.clear()
+    FRI._LOWDEG_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = dict(sign_equals_bodies=True, sign_replays=sign_replays,
+                  interleaved_documents=len(docs), fixtures_replayed=True,
+                  reserved_gb_before_clear=reserved,
+                  reserved_gb_after_clear=torch.cuda.memory_reserved() / 1e9)
+    print("segments: a replayed sign equals the bodies called directly byte for byte; two "
+          "documents signed and verified in turns; both fixtures reproduced through replays "
+          + json.dumps(result), flush=True)
     return result
 
 
@@ -1065,6 +1242,7 @@ def limb_phase(dev, int_rate: float, logs: dict | None = None) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for op, (_, _, arity, _) in LIMB_OPS.items():
             getattr(L, op)(*(x, y)[:arity])  # the dispatching name
+        L.mont_inv_fermat(x[:1])
         torch.cuda.synchronize()
     device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     require(device == [k.symbol.replace("_launch", "_kernel") for k in L.KERNELS],
@@ -1078,6 +1256,65 @@ def limb_phase(dev, int_rate: float, logs: dict | None = None) -> dict:
                    bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                    launches_own_phase=k.launches - c, copies_own_phase=copies)
     return rows
+
+
+def inv_bound(n: int, int_rate: float) -> tuple[float, str]:
+    """n inversions: each element read and written once (128 B) against the
+    chain's INV_PRODUCTS products of MONT_MUL_OPS instructions."""
+    return bound_ms(n * 128, n * INV_PRODUCTS * MONT_MUL_OPS, int_rate)
+
+
+def inversion_phase(dev, int_rate: float) -> dict:
+    """Phase 2c, inversion: the kernel of mont_inv_fermat (csrc/limbs.cu
+    limbs_inv_launch) bit for bit against its plain version, and against
+    Python integers, on 0, 1, p-1, p-2 (as stored limbs), one random
+    element and 2^14; its queued time at INV_SIZES beside its bound (at one
+    element the time is one thread's chain of dependent products), the
+    plain version timed once at 2^14; batch_inv at BATCH_INV_SIZES (a zero
+    first, for inv(0) == 0) on the card against its CPU path, each call
+    one launch of the inversion and none of REDC (no host round trip).
+    Returns the kernel's row."""
+    gen = torch.Generator().manual_seed(47)
+    launches0 = L.INV_KERNEL.launches
+    r2 = L.R_INT * L.R_INT % L.P
+    cases = {"edges": L.from_numpy(L.ints_to_limbs([0, 1, L.P - 1, L.P - 2]), dev),
+             "n=1": random_mont(1, gen, dev), "n=16384": random_mont(1 << 14, gen, dev)}
+    row = dict(kernel=L.INV_KERNEL, source="zk_stark_tpu_torch/csrc/limbs.cu", max_abs_err=0,
+               by_size={})
+    for name, x in cases.items():
+        got = L.mont_inv_fermat_kernel(x)
+        row["max_abs_err"] = max(row["max_abs_err"], check(
+            f"inv {name}", got, run_plain(L.mont_inv_fermat_plain, x)))
+        # a stored value v is the Montgomery form of v / R: its inverse's is R^2 / v
+        want = [pow(int(v), -1, L.P) * r2 % L.P if v else 0 for v in L.limbs_to_ints(x)]
+        require([int(v) for v in L.limbs_to_ints(got)] == want,
+                f"inv {name}: kernel differs from Python integers")
+    for n, x in zip(INV_SIZES, (cases["n=1"], cases["n=16384"])):
+        bound = inv_bound(n, int_rate)
+        size = dict(ms=time_ms(lambda: L.mont_inv_fermat_kernel(x), queued=True),
+                    bound_ms=bound[0], bound_by=bound[1])
+        if n == INV_SIZES[-1]:
+            size["plain_ms"] = timed_once(lambda: run_plain(L.mont_inv_fermat_plain, x))[1]
+        row["by_size"][f"n={n}"] = size
+    for n in BATCH_INV_SIZES:
+        x = random_mont(n, gen, dev)
+        x[0] = 0
+        counts = (L.INV_KERNEL.launches, L.REDC_KERNEL.launches)
+        got = L.batch_inv(x)
+        moved = (L.INV_KERNEL.launches - counts[0], L.REDC_KERNEL.launches - counts[1])
+        require(moved == (1, 0), f"batch_inv n={n}: {moved} inversion and REDC launches")
+        require(torch.equal(got.cpu(), L.batch_inv(x.cpu())),
+                f"batch_inv n={n} on the card differs from its CPU path")
+        row["by_size"][f"batch_inv n={n}"] = dict(ms=time_ms(lambda: L.batch_inv(x), reps=5,
+                                                             runs=3))
+    head = row["by_size"][f"n={INV_SIZES[-1]}"]
+    row.update(shape=f"n={INV_SIZES[-1]}", ms=head["ms"], plain_ms=head["plain_ms"],
+               bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+               launches_own_phase=L.INV_KERNEL.launches - launches0)
+    print("inv: bit-exact against its plain version and Python integers on 0, 1, p-1, p-2, one "
+          f"and 2^14 elements; batch_inv n={list(BATCH_INV_SIZES)} equals its CPU path in one "
+          "inversion launch and no REDC; " + json.dumps(row["by_size"]), flush=True)
+    return row
 
 
 def sass_ops_per_product() -> float:
@@ -1299,6 +1536,7 @@ def main() -> int:
     print(f"int32 peak: {int_rate:.4e} instructions/s", flush=True)
     product = product_phase(dev)
     limb_rows = limb_phase(dev, int_rate, logs)
+    limb_rows["limbs_mont_inv_fermat"] = inversion_phase(dev, int_rate)
     rows = compare_kernels(dev, int_rate, logs)
     rows.update(limb_rows)
     fixture_phase(dev)
@@ -1306,6 +1544,7 @@ def main() -> int:
     main["profile"] = profile_phase(*signer)
     chain_fixture_phase(dev)
     chain = chain_path(dev, chain_kernels)
+    main["segments"] = segment_phase(dev)
     long_ntt = long_ntt_phase(dev, int_rate, logs)
     variants = probe_phase(dev)
     mm = montmul_chain_phase(dev, int_rate)

@@ -95,6 +95,23 @@ def test_prove_verify_round_trip():
         assert values[i] == v
 
 
+def test_commit_adds_no_cached_constant():
+    """Each round's folding scalar alpha / offset is a value of the proof: a
+    second commit with another transcript (so other alphas) leaves the cache
+    of configuration constants (limbs.const) as it was."""
+    fri = _fri()
+    cw = _codeword(fri, fri.domain_length // 4 - 1, seed=4)
+    first = ProofStream(F)
+    fri.commit(cw, first)
+    size = L._const.cache_info().currsize
+    second = ProofStream(F)
+    second.push(Root(bytes(64)))
+    fri.commit(cw, second)
+    # the same first root, then other folds
+    assert second.items[1] == first.items[0] and second.items[2] != first.items[1]
+    assert L._const.cache_info().currsize == size
+
+
 def test_high_degree_codeword_rejected():
     fri = _fri()
     cw = _codeword(fri, fri.domain_length // 2, seed=2)

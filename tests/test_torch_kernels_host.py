@@ -217,6 +217,13 @@ extern "C" void host_limbs(int op, const int64_t* a, const int64_t* b, int64_t* 
     });
   }
 }
+// the inversion kernel on a grid of `blocks` blocks of one thread each
+// (a grid-stride loop over n elements)
+extern "C" void host_inv(const int64_t* a, int64_t* out, int64_t n, int blocks) {
+  grid(blocks);
+  gridDim.x = blocks;
+  for (int bx = 0; bx < blocks; ++bx) { blockIdx.x = bx; limbs_inv_kernel(a, out, n); }
+}
 """
 
 
@@ -251,6 +258,7 @@ def lib(tmp_path_factory):
     lib.host_leaf.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
     lib.host_fold.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     lib.host_node.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+    lib.host_inv.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int]
     return lib
 
 
@@ -373,6 +381,22 @@ def test_mont_mul_source(lib):
     lib.host_mont_mul(*_ptrs(a, b, out), len(a_vals))
     r_inv = pow(1 << 128, -1, P)
     assert list(L.limbs_to_ints(out)) == [x * y * r_inv % P for x, y in zip(a_vals, b_vals)]
+
+
+@pytest.mark.parametrize("blocks", [1, 7])
+def test_inv_kernel_source(lib, blocks):
+    """limbs.cu's inversion (the fixed addition chain for a^(p-2)) against
+    Python's pow(a, -1, p) on 0, 1, p-1, p-2 and seeded random values (in
+    Montgomery form in and out), over a grid-stride loop of 1 and 7 blocks."""
+    rng = np.random.default_rng(12)
+    rand = [int(h) << 64 | int(lo) for h, lo in zip(rng.integers(0, 1 << 63, 60, dtype=np.uint64),
+                                                    rng.integers(0, 1 << 63, 60, dtype=np.uint64))]
+    vals = [0, 1, P - 1, P - 2] + [v % P for v in rand]
+    a = L.ints_to_mont(vals, "cpu")
+    out = torch.full_like(a, -1)
+    lib.host_inv(*_ptrs(a, out), len(vals), blocks)
+    assert [int(v) for v in L.mont_to_ints(out)] == [pow(v, -1, P) if v else 0 for v in vals]
+    assert torch.equal(out, L.mont_inv_fermat_plain(a))
 
 
 #: op: (its code in host_limbs, the plain version, the JAX package's function

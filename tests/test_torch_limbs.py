@@ -126,6 +126,38 @@ def test_batch_inv_matches_jax(operands):
     assert np.array_equal(got.numpy(), np.asarray(JL.batch_inv_jit(JL.ints_to_mont(a))))
 
 
+def test_mont_inv_fermat_plain_matches_jax(operands):
+    """The inversion kernel's plain version against the JAX package's
+    mont_inv_fermat (and the host Field) on 0, 1, p-1, p-2 and random
+    elements."""
+    import jax
+
+    a = operands[0][:12]
+    got = L.mont_inv_fermat_plain(L.ints_to_mont(a, "cpu"))
+    want = jax.jit(JL.mont_inv_fermat)(JL.ints_to_mont(a))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert [int(v) for v in L.mont_to_ints(got)] == [F.inv(v) for v in a]
+    assert torch.equal(L.mont_inv_fermat(L.ints_to_mont(a, "cpu")), got)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64])
+def test_batch_inv_stays_on_its_device(operands, monkeypatch, n):
+    """batch_inv inverts its root product with mont_inv_fermat on the
+    tensors' device: with the conversions to host integers raising, it
+    still runs and equals the host Field's inverses."""
+    a, _ = operands
+    x = L.ints_to_mont(a[:n], "cpu")
+
+    def refuse(*args):
+        raise AssertionError("batch_inv took a value to the host")
+
+    monkeypatch.setattr(L, "mont_to_ints", refuse)
+    monkeypatch.setattr(L, "limbs_to_ints", refuse)
+    got = L.batch_inv(x)
+    monkeypatch.undo()
+    assert [int(v) for v in L.mont_to_ints(got)] == [F.inv(v) for v in a[:n]]
+
+
 def test_cumprod_blocked(operands):
     a, _ = operands
     vals = [v for v in a if v][:40]
@@ -145,8 +177,9 @@ DISPATCH = [
     (L.add_mod, L.add_mod_plain, L.add_mod_kernel, 2),
     (L.sub_mod, L.sub_mod_plain, L.sub_mod_kernel, 2),
     (L.redc, L.redc_plain, L.redc_kernel, 1),
+    (L.mont_inv_fermat, L.mont_inv_fermat_plain, L.mont_inv_fermat_kernel, 1),
 ]
-DISPATCH_IDS = ["mont_mul", "add_mod", "sub_mod", "redc"]
+DISPATCH_IDS = ["mont_mul", "add_mod", "sub_mod", "redc", "mont_inv_fermat"]
 
 
 @pytest.mark.parametrize("fn, plain, kernel, arity", DISPATCH, ids=DISPATCH_IDS)
@@ -269,8 +302,8 @@ def test_plain_versions_reach_no_dispatching_name(monkeypatch, operands):
     """The plain kernel versions that chip_smoke.py holds the kernels
     against on the card run their own tensor code: with the dispatching
     names raising, the plain fold, NTT (its power table built anew), leaf
-    and node digests, Rescue permutation and chained product still run and
-    equal what they gave before."""
+    and node digests, Rescue permutation, chained product and inversion
+    still run and equal what they gave before."""
     from zk_stark_tpu_torch.models.rescue_prime import RescuePrime
     from zk_stark_tpu_torch.ops import blake2b as B
     from zk_stark_tpu_torch.ops import fold as FO
@@ -293,14 +326,14 @@ def test_plain_versions_reach_no_dispatching_name(monkeypatch, operands):
         return [*FO.fold_plain(cw, invpows, ao, two_inv), N.ntt_plain(cw, root), leaves,
                 B.node_digests_plain(leaves),
                 R.permutation_plain(state, mds, rc, 2, rp.alpha, rp.alpha_inv),
-                MC.mont_mul_chain_plain(cw, 3)]
+                MC.mont_mul_chain_plain(cw, 3), L.mont_inv_fermat_plain(cw[:4])]
 
     want = run()
 
     def refuse(*args):
         raise AssertionError("a plain version reached a dispatching limb name")
 
-    for name in ("mont_mul", "add_mod", "sub_mod", "redc"):
+    for name in ("mont_mul", "add_mod", "sub_mod", "redc", "mont_inv_fermat"):
         monkeypatch.setattr(L, name, refuse)
     N._powers_dev.cache_clear()
     try:

@@ -141,6 +141,23 @@ extern "C" __global__ void __launch_bounds__(1024) ntt_stages_kernel(
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 
+// Lets the kernel take `smem` bytes of dynamic shared memory on the current
+// card: the attribute is set only when a launch needs more than any before
+// it (so a CUDA graph's capture, whose sizes its warm-up run has set, makes
+// no such call).
+static cudaError_t allow_smem(int smem) {
+    constexpr int kMaxDevices = 16;
+    static int allowed[kMaxDevices] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int& cur = allowed[dev < kMaxDevices ? dev : kMaxDevices - 1];
+    if (smem <= cur) return cudaSuccess;
+    const cudaError_t e = cudaFuncSetAttribute(
+        ntt_stages_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) cur = smem;
+    return e;
+}
+
 // gx, gy, gz: the transforms along each grid index; the block takes
 // 2^log2_count of them along dim with `threads` threads.
 static int launch(const void* x, void* y, const void* tw, const void* ft, int log2n,
@@ -148,8 +165,7 @@ static int launch(const void* x, void* y, const void* tw, const void* ft, int lo
                   int threads, int in_tmajor, int out_tmajor, void* stream) {
     const int n = 1 << log2n;
     const int smem = ((n + 1) << log2_count) * (int)sizeof(Fe4);
-    cudaError_t e = cudaFuncSetAttribute(
-        ntt_stages_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = allow_smem(smem);
     if (e != cudaSuccess) return (int)e;
     int grid[3] = {gx, gy, gz};
     const Tile tile{dim, log2_count, grid[dim], in_tmajor, out_tmajor};

@@ -6,14 +6,15 @@ fold kernel on the card) and one Merkle tree built on the device; only the
 root crosses to the host.  :meth:`FRI.prove` opens every round's queries
 with one :func:`merkle.open_many`.  The verifier runs on the host except
 for the last-codeword check, whose iNTT, degree scan and re-evaluation run
-on the FRI's device through the port's NTT.
+on the FRI's device as one segment (``segments.Segment``, the JAX
+package's ``_lowdeg_kernel``), cached per codeword length and coset.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import merkle
+from . import merkle, segments
 from .field import Field
 from .ops import limbs as L
 from .ops.fold import fold_round
@@ -26,6 +27,9 @@ from .utils.hashing import PROOF_BYTES, blake2b512
 
 
 class FRI:
+    #: the last-codeword check's segments, by (length, omega, offset, device)
+    _LOWDEG_CACHE: dict = {}
+
     def __init__(
         self,
         field: Field,
@@ -125,7 +129,8 @@ class FRI:
             ).value
             committed.append(tree)
 
-            ao = L.int_to_mont(alpha * pow(offset, -1, p) % p, self.device)
+            # a value of this proof: uploaded anew, never cached (int_to_mont)
+            ao = L.ints_to_mont([alpha * pow(offset, -1, p) % p], self.device)[0]
             invpows = powers_mont(pow(omega, -1, p), n // 2, self.device)
             cw, canon = fold_round(cw, invpows, ao, two_inv)
             omega = omega * omega % p
@@ -186,18 +191,30 @@ class FRI:
 
     # -- verifier ------------------------------------------------------------
 
+    @staticmethod
+    def _lowdeg(cw: torch.Tensor, last_omega: int, last_offset: int) -> tuple[torch.Tensor]:
+        """iNTT -> scale by offset^-1 -> degree scan -> scale back ->
+        re-evaluate: [n, 8] Montgomery -> [1 + n, 8], row 0 holding the
+        degree (-1 for zero) in limb 0, rows 1.. the canonical re-evaluated
+        codeword (one tensor, so one copy to the host)."""
+        poly = DPoly(intt_mont(cw, last_omega)).scale(pow(last_offset, -1, L.P))
+        deg = degree_device(poly.c).reshape(1, 1)
+        deg_row = torch.cat([deg, torch.zeros((1, L.NLIMB - 1), dtype=L.DTYPE, device=cw.device)],
+                            dim=1)
+        canon = L.from_mont(ntt_mont(poly.scale(last_offset).c, last_omega))
+        return (torch.cat([deg_row, canon]),)
+
     def _last_codeword_check(
         self, last_codeword: list[int], last_omega: int, last_offset: int
     ) -> tuple[int, list[int]]:
-        """iNTT -> scale by offset^-1 -> degree scan -> scale back ->
-        re-evaluate, on the device; returns (degree, re-evaluated ints)."""
-        p = self.field.order
-        cw = L.ints_to_mont(last_codeword, self.device)
-        poly = DPoly(intt_mont(cw, last_omega)).scale(pow(last_offset, -1, p))
-        degree = degree_device(poly.c)
-        canon = L.from_mont(ntt_mont(poly.scale(last_offset).c, last_omega))
-        reeval = [int(v) for v in L.limbs_to_ints(canon)]
-        return int(degree), reeval
+        """The low-degree check on the device; returns (degree, re-evaluated
+        ints)."""
+        key = (len(last_codeword), last_omega, last_offset, str(self.device))
+        seg = segments.cache_get(FRI._LOWDEG_CACHE, key, lambda: segments.Segment(
+            "lowdeg", lambda cw: self._lowdeg(cw, last_omega, last_offset), self.device))
+        (packed,) = seg(L.ints_to_mont(last_codeword, "cpu"))
+        out = packed.cpu()
+        return int(out[0, 0]), [int(v) for v in L.limbs_to_ints(out[1:])]
 
     def verify(
         self,

@@ -10,7 +10,9 @@ accept any object with:
 * ``evaluate_codewords(point)`` — all constraints evaluated pointwise from
   per-variable codewords ``point = [x, cur_0..cur_{m-1}, nxt_0..nxt_{m-1}]``
   (each [N, 8] Montgomery tensors), used by the prover on the FRI coset and
-  by the verifier on the queried points.
+  by the verifier on the queried points;
+* ``fingerprint()`` — a hashable value that is equal for AIRs that evaluate
+  alike (part of the key of the prover's and verifier's cached segments).
 
 Plain lists of MPolynomial are wrapped in :class:`ConstraintSystemAir`.
 """
@@ -46,6 +48,14 @@ class ConstraintSystemAir:
                 best = max(best, total)
             res.append(best)
         return res
+
+    def fingerprint(self):
+        """The constraints' terms: equal for equal constraint systems (a key
+        of the prover's and verifier's cached segments)."""
+        return tuple(
+            tuple(sorted((tuple(k), v) for k, v in tc.dictionary.items()))
+            for tc in self.constraints
+        )
 
     def evaluate_codewords(self, point: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         return [

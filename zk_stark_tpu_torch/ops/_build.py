@@ -111,8 +111,15 @@ class Kernel:
     """One C entry point of one library, with its count of launches.
 
     ``launches`` goes up by one for every successful launch and nowhere
-    else, so a run can show that it went through the kernel.
+    else, so a run can show that it went through the kernel: here for a
+    launch from Python, in ``segments.Segment`` for the launches a CUDA
+    graph's replay makes (a capture records its calls without launching
+    them, so it leaves the count as it was).  ``calls`` counts the calls
+    from Python alone, captures included.
     """
+
+    #: every Kernel made, in order (what a capture reads the counts of)
+    instances: list["Kernel"] = []
 
     def __init__(self, library: str, symbol: str, argtypes: Sequence, replaces: str,
                  name: str | None = None):
@@ -125,7 +132,9 @@ class Kernel:
         #: the TPU kernel this one stands in for (file:line in the JAX package)
         self.replaces = replaces
         self.launches = 0
+        self.calls = 0
         self._fn = None
+        Kernel.instances.append(self)
 
     def __call__(self, *args) -> None:
         if self._fn is None:
@@ -139,6 +148,7 @@ class Kernel:
                 f"CUDA kernel {self.symbol} failed to launch: error {rc}"
             )
         self.launches += 1
+        self.calls += 1
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtype, shape=None) -> None:

@@ -17,9 +17,11 @@ That tensor code is the plain version (``mont_mul_plain``, ``add_mod_plain``,
 ``sub_mod_plain``, ``redc_plain``) of ``csrc/limbs.cu``, which computes each
 of the four in one launch on the card.  ``mont_mul``, ``add_mod``,
 ``sub_mod`` and ``redc`` launch the kernel on CUDA tensors (or raise) and
-run the plain version on CPU tensors; everything else here (``neg_mod``,
-``to_mont``, ``from_mont``, the powers, scans and inversions) is built on
-those four.
+run the plain version on CPU tensors; so does ``mont_inv_fermat``, the
+elementwise inverse (one launch of the kernel's fixed addition chain, or
+``mont_inv_fermat_plain``).  Everything else here (``neg_mod``,
+``to_mont``, ``from_mont``, the powers, scans and ``batch_inv``) is built
+on those five, and never leaves the tensors' device.
 """
 
 from __future__ import annotations
@@ -99,12 +101,16 @@ def _const(value: int, device: str) -> torch.Tensor:
 
 def const(value: int, device) -> torch.Tensor:
     """A cached [8] limb tensor holding ``value`` as given (no conversion).
-    Callers must not write into it."""
+    Callers must not write into it.  The cache never shrinks: only for
+    configuration constants (roots, offsets, their inverses), never for a
+    value that changes with the proof (upload that with
+    :func:`ints_to_mont`)."""
     return _const(value, str(torch.device(device)))
 
 
 def int_to_mont(v: int, device) -> torch.Tensor:
-    """Host int -> [8] Montgomery form on ``device``."""
+    """Host int -> [8] Montgomery form on ``device``, cached as :func:`const`
+    is: for configuration constants only."""
     return const(int(v) % P * R_INT % P, device)
 
 
@@ -281,7 +287,12 @@ REDC_KERNEL = _build.Kernel(
     + [ctypes.c_void_p],
     replaces="zk_stark_tpu/ops/limbs.py:235 (from_mont, XLA-fused)", name="limbs_redc",
 )
-KERNELS = (MONT_MUL_KERNEL, ADD_MOD_KERNEL, SUB_MOD_KERNEL, REDC_KERNEL)
+INV_KERNEL = _build.Kernel(
+    "limbs", "limbs_inv_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p],
+    replaces="zk_stark_tpu/ops/limbs.py:366 (mont_inv_fermat, XLA-fused)",
+    name="limbs_mont_inv_fermat",
+)
+KERNELS = (MONT_MUL_KERNEL, ADD_MOD_KERNEL, SUB_MOD_KERNEL, REDC_KERNEL, INV_KERNEL)
 
 #: operands :func:`kernel_plan` copied to a contiguous layout (a limb stride
 #: other than 1, a start or an element stride off the 16-byte grid, or more
@@ -408,7 +419,9 @@ def kernel_plan(*operands: torch.Tensor) -> Plan:
     return Plan(lead, len(sizes), [1] * pad + sizes, strides, views, divisors)
 
 
-def _launch(kernel: _build.Kernel, name: str, *operands: torch.Tensor) -> torch.Tensor:
+def _check_operands(name: str, *operands: torch.Tensor) -> torch.device:
+    """Raise unless every operand is a CUDA tensor of [..., 8] int64 limbs on
+    one device; return that device."""
     dev = operands[0].device
     for t in operands:
         if not t.is_cuda:
@@ -418,6 +431,11 @@ def _launch(kernel: _build.Kernel, name: str, *operands: torch.Tensor) -> torch.
         if t.dtype != DTYPE or t.dim() == 0 or t.shape[-1] != NLIMB:
             raise ValueError(f"{name}: expected {DTYPE} [..., {NLIMB}] limbs, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    return dev
+
+
+def _launch(kernel: _build.Kernel, name: str, *operands: torch.Tensor) -> torch.Tensor:
+    dev = _check_operands(name, *operands)
     plan = kernel_plan(*operands)
     out = torch.empty(plan.lead + (NLIMB,), dtype=DTYPE, device=dev)
     n = out.numel() // NLIMB
@@ -450,6 +468,27 @@ def redc_kernel(a: torch.Tensor) -> torch.Tensor:
     return _launch(REDC_KERNEL, "redc_kernel", a)
 
 
+def mont_inv_fermat_kernel(a: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/limbs.cu``'s inversion (one thread an element, a fixed
+    addition chain for a^(p-2)); same contract as :func:`mont_inv_fermat_plain`.
+    An operand that is not contiguous or starts off the 16-byte grid is
+    copied first (counted in :data:`copies`)."""
+    global copies
+    dev = _check_operands("mont_inv_fermat_kernel", a)
+    x = a
+    if not x.is_contiguous() or x.data_ptr() & 15:
+        x = a.clone(memory_format=torch.contiguous_format)
+        copies += 1
+    out = torch.empty(x.shape, dtype=DTYPE, device=dev)
+    n = x.numel() // NLIMB
+    if n > MAX_KERNEL_ELEMENTS:
+        raise ValueError(f"mont_inv_fermat_kernel: {n} elements, the kernel indexes at most "
+                         f"{MAX_KERNEL_ELEMENTS}")
+    if n:
+        INV_KERNEL(x.data_ptr(), out.data_ptr(), n, _build.stream_ptr(dev))
+    return out
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a*b*R^-1 mod p, broadcasting: the kernel unless both lie on the CPU."""
     if a.is_cpu and b.is_cpu:
@@ -476,6 +515,14 @@ def redc(a: torch.Tensor) -> torch.Tensor:
     if a.is_cpu:
         return redc_plain(a)
     return redc_kernel(a)
+
+
+def mont_inv_fermat(a: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse a^(p-2) in Montgomery form (inv(0) == 0): the
+    kernel unless ``a`` lies on the CPU."""
+    if a.is_cpu:
+        return mont_inv_fermat_plain(a)
+    return mont_inv_fermat_kernel(a)
 
 
 def mont_sqr(a: torch.Tensor) -> torch.Tensor:
@@ -556,6 +603,13 @@ def mont_pow_windowed(a: torch.Tensor, e: int, mul=None) -> torch.Tensor:
     return acc
 
 
+def mont_inv_fermat_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of the inversion kernel: a^(p-2) by
+    :func:`mont_pow_windowed` with plain products (the JAX package's
+    ``mont_inv_fermat``); inv(0) == 0."""
+    return mont_pow_windowed(a, P - 2, mul=mont_mul_plain)
+
+
 def cumprod_mont_blocked(x: torch.Tensor, cols: int | None = None) -> torch.Tensor:
     """Inclusive cumulative Montgomery product along axis 0 of [n, 8].
 
@@ -592,9 +646,10 @@ def batch_inv(a: torch.Tensor) -> torch.Tensor:
 
     The Montgomery product trick over a product tree: the up-sweep
     multiplies pairs level by level, the single root product is inverted
-    on the host (one 16-byte round trip instead of a ~170-multiply Fermat
-    chain), and the down-sweep hands each child inv(parent) * sibling.
-    2*log2(n) full-width multiplies in all.
+    by :func:`mont_inv_fermat` on its device (one launch on the card, no
+    round trip to the host, so a captured segment may call this), and the
+    down-sweep hands each child inv(parent) * sibling.  2*log2(n)
+    full-width multiplies in all.
     """
     shape = a.shape
     flat = a.reshape(-1, NLIMB)
@@ -613,8 +668,7 @@ def batch_inv(a: torch.Tensor) -> torch.Tensor:
         cur = levels[-1]
         levels.append(mont_mul(cur[0::2], cur[1::2]))
 
-    total = int(mont_to_ints(levels[-1])[0])
-    inv = ints_to_mont([pow(total, -1, P)], a.device)
+    inv = mont_inv_fermat(levels[-1])
 
     for cur in reversed(levels[:-1]):
         # children (l, r) of a parent with inverse q: inv(l) = q*r, inv(r) = q*l

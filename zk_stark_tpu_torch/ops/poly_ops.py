@@ -368,6 +368,28 @@ def evaluate_many(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return evaluate_polys_shared(coeffs.unsqueeze(0), points)[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _mpoly_tables(items: tuple, nvars: int, device: str):
+    """A constraint's coefficients [T, 1, 8] (Montgomery) and, for each
+    variable with a nonzero exponent, (its largest exponent, the term
+    exponents as an index tensor [T]), on ``device``: built once per
+    constraint and device (so a captured segment makes no upload)."""
+    exps = np.zeros((len(items), nvars), dtype=np.int64)
+    for t, (k, _) in enumerate(items):
+        for v, e in enumerate(k):
+            if v < nvars:
+                exps[t, v] = e
+            else:
+                assert e == 0, "exponent on missing variable"
+    coeffs = L.ints_to_mont([v for _, v in items], device).unsqueeze(1)
+    index = [
+        (v, int(exps[:, v].max()), torch.from_numpy(exps[:, v].copy()).to(device))
+        for v in range(nvars)
+        if exps[:, v].max() > 0
+    ]
+    return coeffs, index
+
+
 def mpoly_evaluate_codewords(
     dictionary: dict[tuple[int, ...], int], points: Sequence[torch.Tensor]
 ) -> torch.Tensor:
@@ -377,26 +399,13 @@ def mpoly_evaluate_codewords(
     variable's powers are built once; every term gathers its powers,
     multiplies across variables, and the terms are tree-summed.
     """
-    items = [(k, v) for k, v in dictionary.items() if v % P != 0]
+    items = tuple((tuple(k), v) for k, v in dictionary.items() if v % P != 0)
     device = points[0].device
     n = points[0].shape[0]
     if not items:
         return torch.zeros((n, L.NLIMB), dtype=L.DTYPE, device=device)
-    nvars = len(points)
-    exps = np.zeros((len(items), nvars), dtype=np.int64)
-    for t, (k, _) in enumerate(items):
-        for v, e in enumerate(k):
-            if v < nvars:
-                exps[t, v] = e
-            else:
-                assert e == 0, "exponent on missing variable"
-    coeffs = L.ints_to_mont([v for _, v in items], device)
-
-    term = coeffs.unsqueeze(1)  # [T, 1, 8]
-    for v in range(nvars):
-        max_e = int(exps[:, v].max())
-        if max_e == 0:
-            continue
+    term, index = _mpoly_tables(items, len(points), str(device))
+    for v, max_e, exps in index:
         pows = _power_table(points[v], max_e + 1)
-        term = L.mont_mul(term, pows[torch.from_numpy(exps[:, v]).to(device)])
+        term = L.mont_mul(term, pows[exps])
     return _tree_sum(term.expand((len(items), n, L.NLIMB)))

@@ -5,8 +5,11 @@ degree bookkeeping, same proof format.  The prover keeps the JAX order of
 work — first segment (trace interpolation, boundary quotients, codewords,
 the AIR on the FRI coset, transition quotients and their degrees) ->
 Merkle roots -> weights -> second segment (the weighted combination on the
-coset) -> FRI -> openings — but each segment is a plain sequence of tensor
-calls on the Stark's device, with no compiled-program cache.
+coset) -> FRI -> openings.  Each segment, and the verifier's combination
+check, is a :class:`segments.Segment` cached per configuration in
+``Stark._SEG_CACHE`` (the JAX package's ``_seg_cache_get``): on the card
+the first call of a configuration captures it as a CUDA graph and later
+calls replay it; on the CPU it runs eagerly on the same static buffers.
 
 Transition polynomials come from evaluating the AIR pointwise on the FRI
 coset and interpolating back with one iNTT, which equals symbolic
@@ -14,7 +17,7 @@ composition because the composition degree fits the coset.
 
 The verifier reads the proof on the host; its combination check (the
 queried trace values, zerofiers and quotients, weighted and summed) runs
-on the device in one batch.
+on the device as one segment, its inputs in one upload.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch.profiler import record_function
 
-from . import merkle
+from . import merkle, segments
 from .field import Field
 from .fri import FRI
 from .models.air import as_air
@@ -194,6 +197,34 @@ class Stark:
             self.field.sample(bytes(i) + randomness).value for i in range(number)
         ]
 
+    # -- segments ------------------------------------------------------------
+
+    #: the prover's and verifier's segments, shared by every Stark of one
+    #: configuration on one device (the JAX package's ``_SEG_CACHE``)
+    _SEG_CACHE: dict = {}
+
+    def _config_key(self) -> tuple:
+        return (
+            self.field.order,
+            self.expansion_factor,
+            self.num_registers,
+            self.original_trace_length,
+            self.num_randomizers,
+            self.omicron_domain_length,
+            self.fri.domain_length,
+            str(self.device),
+        )
+
+    def _seg_cache_get(self, name: str, key: tuple, body) -> segments.Segment:
+        """The segment ``name`` of this configuration and ``key``; ``body``
+        (a function of tensors) is captured only on the first use of the
+        key, so everything it closes over besides its inputs must be fixed
+        by the key."""
+        return segments.cache_get(
+            Stark._SEG_CACHE, (name, self._config_key()) + key,
+            lambda: segments.Segment(name, body, self.device),
+        )
+
     # -- prover --------------------------------------------------------------
 
     def _segment1(self, air, trace_cols, bi_arrs, bz_arrs, rand_arr):
@@ -246,18 +277,17 @@ class Stark:
         canons = L.from_mont(torch.stack(bq_cws + [rand_cw]))
         return canons, [tq.c for tq in tqs], [bq.c for bq in bqs], torch.stack(tq_degs)
 
-    def _segment2(self, weights: list[int], term_arrs, shifts) -> torch.Tensor:
-        """Weighted combination of the shifted quotients and the randomizer,
-        evaluated on the FRI coset."""
+    def _segment2(self, w: torch.Tensor, term_arrs, shifts) -> tuple[torch.Tensor]:
+        """Weighted combination (weights ``w`` [W, 8]) of the shifted
+        quotients and the randomizer, evaluated on the FRI coset."""
         max_len = max(a.shape[0] + sh for a, sh in zip(term_arrs, shifts))
-        w = L.ints_to_mont(weights, self.device)
         comb = torch.zeros((max_len, L.NLIMB), dtype=L.DTYPE, device=self.device)
         for idx, arr in enumerate(term_arrs):
             sh, ln = shifts[idx], arr.shape[0]
             comb[sh : sh + ln] = L.add_mod(comb[sh : sh + ln], L.mont_mul(arr, w[idx]))
-        return fast_coset_evaluate(
+        return (fast_coset_evaluate(
             DPoly(comb), self.generator, self.omega, self.fri.domain_length
-        )
+        ),)
 
     def prove(
         self,
@@ -288,22 +318,33 @@ class Stark:
                 for _ in range(transition_constraints_degree + 1)
             ]
 
+            # host tensors, each copied into its segment's buffer on the
+            # device; the randomizer goes up once, since both segments read it
             m = self.num_registers
-            dev = self.device
             trace_cols = L.ints_to_mont(
-                [row[s] for s in range(m) for row in trace], dev
+                [row[s] for s in range(m) for row in trace], "cpu"
             ).reshape(m, randomized_trace_length, L.NLIMB)
             bi_arrs = [
-                L.ints_to_mont(bi.coeffs if bi.coeffs else [0], dev)
+                L.ints_to_mont(bi.coeffs if bi.coeffs else [0], "cpu")
                 for bi in boundary_interpolants
             ]
-            bz_arrs = [L.ints_to_mont(bz.coeffs, dev) for bz in boundary_zerofiers]
-            rand_arr = L.ints_to_mont(randomizer_ints, dev)
+            bz_arrs = [L.ints_to_mont(bz.coeffs, "cpu") for bz in boundary_zerofiers]
+            rand_arr = L.ints_to_mont(randomizer_ints, self.device)
 
         air = as_air(transition_constraints)
+        seg1 = self._seg_cache_get(
+            "seg1",
+            (
+                randomized_trace_length,
+                tuple(a.shape[0] for a in bi_arrs),
+                tuple(a.shape[0] for a in bz_arrs),
+                air.fingerprint(),
+            ),
+            lambda *args: self._segment1(air, *args),
+        )
         with record_function("stark.segment1"):
-            canons, tq_stack, bq_stack, tq_degs = self._segment1(
-                air, trace_cols, bi_arrs, bz_arrs, rand_arr
+            canons, tq_stack, bq_stack, tq_degs = seg1(
+                trace_cols, bi_arrs, bz_arrs, rand_arr
             )
 
         # commit to boundary quotients + randomizer
@@ -330,16 +371,20 @@ class Stark:
         bq_bounds = self.boundary_quotient_degree_bounds(
             randomized_trace_length, boundary
         )
-        term_arrs = [rand_arr]
-        shifts = [0]
-        for i, tq in enumerate(tq_stack):
-            term_arrs.extend([tq, tq])
-            shifts.extend([0, transition_constraints_degree - tq_bounds[i]])
-        for i, bq in enumerate(bq_stack):
-            term_arrs.extend([bq, bq])
-            shifts.extend([0, transition_constraints_degree - bq_bounds[i]])
+        # each quotient enters twice, unshifted and shifted: the segment
+        # takes each array once (its inputs are copies)
+        arrs = [rand_arr] + list(tq_stack) + list(bq_stack)
+        terms, shifts = [0], [0]
+        for i, bound in enumerate(tq_bounds + bq_bounds):
+            terms.extend([1 + i, 1 + i])
+            shifts.extend([0, transition_constraints_degree - bound])
+        seg2 = self._seg_cache_get(
+            "seg2",
+            (tuple(shifts), tuple(int(arrs[t].shape[0]) for t in terms)),
+            lambda w, a: self._segment2(w, [a[t] for t in terms], shifts),
+        )
         with record_function("stark.segment2"):
-            combined = self._segment2(weights, term_arrs, shifts)
+            (combined,) = seg2(L.ints_to_mont(weights, "cpu"), arrs)
 
         # FRI low-degree proof
         with record_function("stark.fri_prove"):
@@ -367,9 +412,9 @@ class Stark:
 
     def _combination(
         self, air, packed, K, W, bz_lens, bi_lens, shifts_tq, shifts_bq
-    ) -> list[int]:
+    ) -> tuple[torch.Tensor]:
         """The combination check on the device: every input arrives in one
-        [total, 8] upload, one [K] canonical result comes back."""
+        [total, 8] upload; returns the [K, 8] canonical combination."""
         m = self.num_registers
         off = 0
 
@@ -416,7 +461,7 @@ class Stark:
         comb = torch.zeros_like(x_cur)
         for i, term in enumerate(terms):
             comb = L.add_mod(comb, L.mont_mul(term, weights[i]))
-        return [int(v) for v in L.mont_to_ints(comb)]
+        return (L.from_mont(comb),)
 
     def verify(
         self,
@@ -514,16 +559,19 @@ class Stark:
         # only feeds the randomized trace length and the boundary-quotient
         # degree bounds; using it here would reject valid proofs for an AIR
         # whose boundary leaves the final cycle unconstrained
+        K, W = len(indices), len(weights)
+        bz_lens = tuple(len(c) for c in bz_ints)
+        bi_lens = tuple(len(c) for c in bi_ints)
+        seg = self._seg_cache_get(
+            "verify_seg",
+            (K, W, self.original_trace_length, tuple(shifts_tq), tuple(shifts_bq),
+             bz_lens, bi_lens, air.fingerprint()),
+            lambda packed: self._combination(
+                air, packed, K, W, bz_lens, bi_lens, shifts_tq, shifts_bq
+            ),
+        )
         with record_function("stark.verify_combination"):
-            got = self._combination(
-                air,
-                L.ints_to_mont(flat, self.device),
-                len(indices),
-                len(weights),
-                [len(c) for c in bz_ints],
-                [len(c) for c in bi_ints],
-                shifts_tq,
-                shifts_bq,
-            )
+            (canon,) = seg(L.ints_to_mont(flat, "cpu"))
+            got = [int(v) for v in L.limbs_to_ints(canon)]
         if got != values:
             raise VerificationError("combination does not match with polynomial value")

@@ -12,8 +12,9 @@ the calls), the median of 5 runs of 20 calls (3 of 5 calls at 2^25).  It
 uses only entry points that every commit since the limb kernel has
 (``ops.limbs`` ``*_kernel``; ``ops.blake2b`` ``leaf_kernel``,
 ``node_kernel`` for one level, ``compress_kernel``; ``ops.fold``
-``fold_kernel``), and ``ops.blake2b.tree_kernel`` where the checkout has
-it: a tree of 2^12 and of 2^20 leaves is timed whole, by ``tree_kernel``
+``fold_kernel``), ``ops.limbs.mont_inv_fermat_kernel`` (at 1 and 2^14
+elements) where the checkout has it, and ``ops.blake2b.tree_kernel``
+where the checkout has it: a tree of 2^12 and of 2^20 leaves is timed whole, by ``tree_kernel``
 or else by ``node_kernel`` one level at a time (behind a longer sleep of
 the card, since one launch a level takes longer on the host than on the
 card).  Prints the card line and one JSON line; needs a card.
@@ -90,6 +91,9 @@ def main() -> int:
             "redc": timed(lambda: L.redc_kernel(a), n),
         }
         del a, b
+    inv = getattr(L, "mont_inv_fermat_kernel", None)  # the inversion, where the checkout has it
+    if inv is not None:
+        out["inv"] = {n: timed(lambda: inv(x), n) for n, x in ((1, field(1)), (1 << 14, field(1 << 14)))}
 
     def level_loop(leaves):  # one node_kernel launch a level
         level = leaves
