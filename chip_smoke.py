@@ -26,9 +26,16 @@ runs (run_plain):
    else); then the inversion (mont_inv_fermat: a^(p-2) by a fixed
    addition chain, one thread an element) bit for bit against its plain
    version and Python integers on 0, 1, p-1, p-2, one element and 2^14
-   random elements, timed at 1 and 2^14 beside its bound, and batch_inv
-   at 1, 7, 4096 and 2^20 elements on the card (one inversion launch, no
-   REDC) against its CPU path;
+   random elements, timed at 1 and 2^14 beside its bound; then the batch
+   inversion (csrc/batch_inv.cu: Montgomery's trick inside a block, the
+   block's total inverted in place by a binary extended Euclid) at 1, 2,
+   7, 8, the sign's 284, 512 and 1024, a block's capacity C and C + 1,
+   the chain's 86,657, 2^17 and 2^18, and 2^20 elements, zeros first, in
+   the middle and last (and all-zero inputs), bit for bit against
+   batch_inv_plain and Python integers, one launch up to C and three
+   above and no other limb launch (the limb phase's profile: nothing else
+   on the card at 1024 and 2^18), an operand copied once when strided or
+   misaligned; each size timed beside its bound;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with both times (CUDA events, median; the leaf, fold and node also
    queued): first the leaf on one value of every decimal length (against
@@ -50,7 +57,10 @@ runs (run_plain):
 5. the RPSSS path: keygen -> sign -> verify at the default config
    (expansion 4, 64 checks, security 128), cold and then warm, with every
    kernel's launch count reset just before the warm sign and read just
-   after it (the segments' graph replays count the launches they make);
+   after it (the segments' graph replays count the launches they make;
+   every kernel launched, but the elementwise inversion not at all, and
+   the batch inversion once a call of batch_inv, whose sizes the cold
+   sign recorded);
    the proof is 1,156,888 bytes, verifies, and a wrong document is
    rejected; the capture time and graph pool of each segment the cold
    sign and verify captured, the Python kernel calls and replays of the
@@ -65,11 +75,12 @@ runs (run_plain):
 7. the chain path: the Rescue-permutation chain of length 3200 (FRI 2^20):
    host trace, one cold prove, one warm prove with every kernel's launch
    count reset just before and read just after (and two more warm proves
-   for the median time), one cold verify (it captures the verifier's
-   segments) and one warm, one verify against a wrong output that must be
-   rejected; the proof is 3,430,752 bytes; the segments the
-   cold prove captured and the warm prove's Python kernel calls and
-   replays; then one more warm prove under torch.profiler;
+   for the median time; the batch inversion three times a call of
+   batch_inv, the elementwise inversion not at all), one cold verify (it
+   captures the verifier's segments) and one warm, one verify against a
+   wrong output that must be rejected; the proof is 3,430,752 bytes; the
+   segments the cold prove captured and the warm prove's Python kernel
+   calls and replays; then one more warm prove under torch.profiler;
 7a. the segments: a default-config sign through replayed segments equals
    byte for byte the sign from the same rng with every segment's body
    called directly on the card; two signs of other documents interleaved
@@ -229,10 +240,21 @@ LIMB_TAIL_SIZES = (1, 31, 257, 4097)
 LIMB_EDGES = (0, 1, L.P - 1, L.P - 2, L.R_INT)
 #: unsynchronised calls timed on the host clock for the host cost of a call
 HOST_CALLS = 1000
-#: the inversion's element counts: batch_inv's root (its only call on the
-#: paths) and a batch that fills 16,384 threads; batch_inv's sizes
+#: the elementwise inversion's element counts: one element and a batch
+#: that fills 16,384 threads
 INV_SIZES = (1, 1 << 14)
-BATCH_INV_SIZES = (1, 7, 4096, 1 << 20)
+#: the sizes of batch_inv's calls on the paths: a warm default-config sign
+#: (two each: the trace interpolation's, the boundary and the transition
+#: quotients' divisions) and a chain prove at length 3200 (the same three
+#: sites); the cold sign and prove record them and the phases check them
+SIGN_BATCH_INV_SIZES = (284, 284, 512, 512, 1024, 1024)
+CHAIN_BATCH_INV_SIZES = (86_657, 86_657, 1 << 17, 1 << 17, 1 << 18, 1 << 18)
+#: the batch inversion's sizes in phase 2c besides a block's capacity C and
+#: C + 1: either side of the JAX package's elementwise limit (8), the
+#: paths', and 2^20
+BATCH_INV_SIZES = (1, 2, 7, 8, 284, 512, 1024, 86_657, 1 << 17, 1 << 18, 1 << 20)
+#: its headline size: a sign's largest call
+BATCH_INV_HEAD = 1024
 #: products of csrc/limbs.cu inv_fermat's addition chain: 132 squarings
 #: and 24 products
 INV_PRODUCTS = 132 + 24
@@ -240,7 +262,8 @@ INV_PRODUCTS = 132 + 24
 #: replays (the commitment and FRI trees, the folds, one REDC)
 MAX_SIGN_CALLS = 60
 #: the device names of the kernels a proof launches (csrc/*.cu)
-PORT_KERNEL_NAMES = ("limbs_", "ntt_stages_kernel", "fold_kernel", "leaf_kernel", "node_kernel")
+PORT_KERNEL_NAMES = ("limbs_", "ntt_stages_kernel", "fold_kernel", "leaf_kernel", "node_kernel",
+                     "batch_inv_")
 
 
 def require(cond, message: str) -> None:
@@ -583,6 +606,39 @@ def captures_since(before: dict) -> list:
             if key not in before and seg.graph is not None]
 
 
+@contextlib.contextmanager
+def recorded_batch_inv():
+    """While active, the element count of every batch_inv call made from
+    Python (a cold call's warm-up and capture; a replay makes none)."""
+    sizes = []
+    batch_inv = L.batch_inv
+
+    def batch_inv_recorded(a):
+        sizes.append(a.numel() // L.NLIMB)
+        return batch_inv(a)
+
+    L.batch_inv = batch_inv_recorded
+    try:
+        yield sizes
+    finally:
+        L.batch_inv = batch_inv
+
+
+def check_path_launches(path: str, launches: dict, batch_inv_sizes) -> None:
+    """Every kernel of a path launched, but the elementwise inversion not at
+    all (batch_inv has its own kernel), and the batch inversion as its
+    calls of ``batch_inv_sizes`` take (batch_inv_launches)."""
+    for name, count in launches.items():
+        if name == L.INV_KERNEL.name:
+            require(count == 0, f"kernel {name} was launched {count} times by the {path}")
+        else:
+            require(count > 0, f"kernel {name} was not launched by the {path}")
+    want = sum(batch_inv_launches(n) for n in batch_inv_sizes)
+    require(launches[L.BATCH_INV_KERNEL.name] == want,
+            f"the {path} launched the batch inversion {launches[L.BATCH_INV_KERNEL.name]} times "
+            f"({want} expected for calls of {list(batch_inv_sizes)} elements)")
+
+
 def main_path(dev, kernels) -> tuple[dict, tuple]:
     """Phase 5: default-config keygen -> sign -> verify, cold (capturing the
     configuration's segments) then warm (replaying them)."""
@@ -594,12 +650,14 @@ def main_path(dev, kernels) -> tuple[dict, tuple]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sig_cold = rpsss.sign(sk, doc)
-    torch.cuda.synchronize()
+    with recorded_batch_inv() as sign_sizes:
+        sig_cold = rpsss.sign(sk, doc)
+        torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    ok_cold = rpsss.verify(pk, doc, sig_cold)
-    torch.cuda.synchronize()
+    with recorded_batch_inv() as verify_sizes:
+        ok_cold = rpsss.verify(pk, doc, sig_cold)
+        torch.cuda.synchronize()
     verify_cold_ms = (time.perf_counter() - t0) * 1e3
     captures = captures_since(before)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -628,8 +686,11 @@ def main_path(dev, kernels) -> tuple[dict, tuple]:
     require(len(sig) == MAIN_PROOF_BYTES, f"proof is {len(sig)} B")
     require(ok_cold and ok, "default-config signature rejected")
     require(not rpsss.verify(pk, b"attack at dusk", sig), "wrong document accepted")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched by the sign")
+    # the cold sign calls batch_inv at every site (in the segments' warm-up
+    # and capture), and for the cached tables it builds
+    require(set(SIGN_BATCH_INV_SIZES) <= set(sign_sizes),
+            f"the cold sign called batch_inv at {sign_sizes} elements")
+    check_path_launches("sign", launches, SIGN_BATCH_INV_SIZES)
     require(sorted(c["name"] for c in captures) == ["lowdeg", "seg1", "seg2", "verify_seg"],
             f"the cold sign and verify captured {[c['name'] for c in captures]}")
     require(sign_replays == 2 and verify_replays == 2,
@@ -639,6 +700,9 @@ def main_path(dev, kernels) -> tuple[dict, tuple]:
     result = dict(sign_ms=sign_ms, verify_ms=verify_ms, sign_cold_ms=cold_ms,
                   verify_cold_ms=verify_cold_ms, proof_bytes=len(sig),
                   launches=launches, limb_operand_copies=copies,
+                  batch_inv_sizes_sign=list(SIGN_BATCH_INV_SIZES),
+                  batch_inv_sizes_cold_sign=sign_sizes,
+                  batch_inv_sizes_verify=sorted(set(verify_sizes)),
                   sign_python_kernel_calls=sign_calls, sign_replays=sign_replays,
                   verify_python_kernel_calls=verify_calls, verify_replays=verify_replays,
                   captures=captures, cold_peak_gb=peak_gb)
@@ -730,6 +794,8 @@ def profiled(fn) -> dict:
         "leaf_kernel": share("leaf_kernel"),
         "node_kernel": share("node_kernel"),
         "fold_kernel": share("fold_kernel"),
+        "batch_inv_kernel": share("batch_inv_"),
+        "limbs_inv_kernel": share("limbs_inv_kernel"),
         **shapes,
         "stages_host_ms": stages,
         "top_device_ms": {k: [v[0], v[1]] for k, v in top},
@@ -808,7 +874,8 @@ def chain_path(dev, kernels) -> dict:
 
     before = cached_segments()
     torch.cuda.reset_peak_memory_stats()
-    proof_cold, cold_ms = prove()
+    with recorded_batch_inv() as cold_sizes:
+        proof_cold, cold_ms = prove()
     cold_captures = captures_since(before)
     for k in kernels:
         k.launches = 0
@@ -841,8 +908,9 @@ def chain_path(dev, kernels) -> dict:
     require(len(proof) == CHAIN_PROOF_BYTES, f"chain proof is {len(proof)} B")
     require(ok, "chain proof rejected")
     require(wrong_rejected, "chain proof accepted for a wrong output")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched by the chain prove")
+    require(set(CHAIN_BATCH_INV_SIZES) <= set(cold_sizes),
+            f"the cold chain prove called batch_inv at {cold_sizes} elements")
+    check_path_launches("chain prove", launches, CHAIN_BATCH_INV_SIZES)
     require(sorted(c["name"] for c in cold_captures) == ["seg1", "seg2"] and prove_replays == 2,
             f"the cold chain prove captured {[c['name'] for c in cold_captures]}, the warm one "
             f"replayed {prove_replays} segments")
@@ -852,6 +920,7 @@ def chain_path(dev, kernels) -> dict:
                   verify_cold_ms=verify_cold_ms, verify_ms=verify_ms,
                   verify_wrong_output_ms=verify_wrong_ms,
                   proof_bytes=len(proof), prove_peak_gb=peak_gb,
+                  batch_inv_sizes=list(CHAIN_BATCH_INV_SIZES), batch_inv_sizes_cold=cold_sizes,
                   verify_peak_gb=verify_peak_gb, launches=launches,
                   limb_operand_copies=copies, prove_python_kernel_calls=prove_calls,
                   prove_replays=prove_replays, captures=captures_since(before))
@@ -1178,8 +1247,10 @@ def limb_phase(dev, int_rate: float, logs: dict | None = None) -> dict:
     LIMB_EDGES leads the inputs, as many as fit); times of
     the full and the broadcast layout beside their bounds, the plain
     version timed once at 2^25; the host time of a call at 4096, kernel
-    against tensor code; one profiled call of each op, which must be one
-    launch of its kernel and nothing else.  Kernel times are queued
+    against tensor code; one profiled call of each op (the inversion and
+    the batch inversion among them, the latter also at 2^18 elements:
+    three launches), which must be one launch of its kernel and nothing
+    else.  Kernel times are queued
     (measure.time_ms): at 4096 a call's host time exceeds its device time.
     Returns one row per op."""
     from torch.autograd import DeviceType
@@ -1238,16 +1309,25 @@ def limb_phase(dev, int_rate: float, logs: dict | None = None) -> dict:
             f"{copies} limb operand copies, {want_copies} expected (one a transposed or "
             "misaligned call)")
 
+    # the batch inversion at a sign's largest call (one launch) and the
+    # chain's (three)
+    big = x.repeat(64, 1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for op, (_, _, arity, _) in LIMB_OPS.items():
             getattr(L, op)(*(x, y)[:arity])  # the dispatching name
         L.mont_inv_fermat(x[:1])
+        L.batch_inv(x[:BATCH_INV_HEAD])
+        L.batch_inv(big)
         torch.cuda.synchronize()
     device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    require(device == [k.symbol.replace("_launch", "_kernel") for k in L.KERNELS],
-            f"one profiled call of each limb op launched {device}")
-    print(f"limbs profiled: one call of each op on the card is one launch of its kernel: {device}",
+    want = [k.symbol.replace("_launch", "_kernel") for k in L.KERNELS]
+    # one instantiation a per-thread count
+    want[-1] += f"_k{L.BATCH_INV_PER_THREAD}"
+    want += want[-1:] * batch_inv_launches(big.shape[0])
+    require(device == want, f"one profiled call of each limb op launched {device}")
+    print(f"limbs profiled: one call of each op on the card is one launch of its kernel, "
+          f"batch_inv of {big.shape[0]} elements {batch_inv_launches(big.shape[0])}: {device}",
           flush=True)
 
     for row, k, c in zip(rows.values(), L.KERNELS, launches0):
@@ -1270,10 +1350,7 @@ def inversion_phase(dev, int_rate: float) -> dict:
     Python integers, on 0, 1, p-1, p-2 (as stored limbs), one random
     element and 2^14; its queued time at INV_SIZES beside its bound (at one
     element the time is one thread's chain of dependent products), the
-    plain version timed once at 2^14; batch_inv at BATCH_INV_SIZES (a zero
-    first, for inv(0) == 0) on the card against its CPU path, each call
-    one launch of the inversion and none of REDC (no host round trip).
-    Returns the kernel's row."""
+    plain version timed once at 2^14.  Returns the kernel's row."""
     gen = torch.Generator().manual_seed(47)
     launches0 = L.INV_KERNEL.launches
     r2 = L.R_INT * L.R_INT % L.P
@@ -1296,24 +1373,111 @@ def inversion_phase(dev, int_rate: float) -> dict:
         if n == INV_SIZES[-1]:
             size["plain_ms"] = timed_once(lambda: run_plain(L.mont_inv_fermat_plain, x))[1]
         row["by_size"][f"n={n}"] = size
-    for n in BATCH_INV_SIZES:
-        x = random_mont(n, gen, dev)
-        x[0] = 0
-        counts = (L.INV_KERNEL.launches, L.REDC_KERNEL.launches)
-        got = L.batch_inv(x)
-        moved = (L.INV_KERNEL.launches - counts[0], L.REDC_KERNEL.launches - counts[1])
-        require(moved == (1, 0), f"batch_inv n={n}: {moved} inversion and REDC launches")
-        require(torch.equal(got.cpu(), L.batch_inv(x.cpu())),
-                f"batch_inv n={n} on the card differs from its CPU path")
-        row["by_size"][f"batch_inv n={n}"] = dict(ms=time_ms(lambda: L.batch_inv(x), reps=5,
-                                                             runs=3))
     head = row["by_size"][f"n={INV_SIZES[-1]}"]
     row.update(shape=f"n={INV_SIZES[-1]}", ms=head["ms"], plain_ms=head["plain_ms"],
                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                launches_own_phase=L.INV_KERNEL.launches - launches0)
     print("inv: bit-exact against its plain version and Python integers on 0, 1, p-1, p-2, one "
-          f"and 2^14 elements; batch_inv n={list(BATCH_INV_SIZES)} equals its CPU path in one "
-          "inversion launch and no REDC; " + json.dumps(row["by_size"]), flush=True)
+          "and 2^14 elements; " + json.dumps(row["by_size"]), flush=True)
+    return row
+
+
+def batch_inv_capacity() -> int:
+    """C: the most elements one launch of the batch inversion takes."""
+    return L.BATCH_INV_THREADS * L.BATCH_INV_PER_THREAD
+
+
+def batch_inv_launches(n: int) -> int:
+    """Launches of the batch inversion for n elements (ops/limbs.py
+    batch_inv_grid): one up to C, else two around those of the totals."""
+    blocks = -(-n // batch_inv_capacity())
+    return 1 if blocks == 1 else 2 + batch_inv_launches(blocks)
+
+
+def batch_inv_bound(n: int, int_rate: float) -> tuple[float, str]:
+    """n elements of batch_inv: each read once and written once (128 B)
+    against Montgomery's trick's ~3 products an element (MONT_MUL_OPS
+    instructions each).  The root's inversion, one thread's chain of
+    dependent steps, is a latency floor that neither count shows."""
+    return bound_ms(n * 128, n * 3 * MONT_MUL_OPS, int_rate)
+
+
+def batch_inv_values(n: int, gen: torch.Generator, dev) -> torch.Tensor:
+    """n random elements on ``dev`` with zeros first, in the middle and last
+    and 1 and p - 1 (Montgomery form) after the first zero, as many as fit."""
+    x = random_mont(n, gen, dev)
+    edges = L.ints_to_mont([1, L.P - 1], dev)
+    x[1:3] = edges[:max(0, min(2, n - 1))]
+    for i in (0, n // 2, n - 1):
+        x[i] = 0
+    return x
+
+
+def batch_inv_phase(dev, int_rate: float) -> dict:
+    """Phase 2c, batch inversion: csrc/batch_inv.cu through batch_inv at
+    BATCH_INV_SIZES, C and C + 1 (batch_inv_values: zeros first, in the
+    middle and last), and all-zero inputs of 284 and C + 1 elements, bit for
+    bit against batch_inv_plain and Python integers; each call
+    batch_inv_launches(n) launches of the kernel and none of another limb
+    kernel (limb_phase's profile shows nothing else on the card); a strided
+    and a misaligned operand copied once each; each size's
+    queued time beside its bound, the plain version timed once at the
+    headline size.  Returns the kernel's row."""
+    gen = torch.Generator().manual_seed(48)
+    cap = batch_inv_capacity()
+    k = L.BATCH_INV_KERNEL
+    others = [o for o in L.KERNELS if o is not k]
+    launches0 = k.launches
+    row = dict(kernel=k, source="zk_stark_tpu_torch/csrc/batch_inv.cu", max_abs_err=0, by_size={},
+               capacity=cap, threads=L.BATCH_INV_THREADS, per_thread=L.BATCH_INV_PER_THREAD)
+    r2 = L.R_INT * L.R_INT % L.P
+    sizes = sorted(set(BATCH_INV_SIZES) | {cap, cap + 1})
+    cases = [(f"n={n}", batch_inv_values(n, gen, dev)) for n in sizes]
+    cases += [(f"all-zero n={n}", torch.zeros((n, L.NLIMB), dtype=L.DTYPE, device=dev))
+              for n in (284, cap + 1)]
+    for name, x in cases:
+        n = x.shape[0]
+        before = (k.launches, [o.launches for o in others])
+        got = L.batch_inv(x)
+        moved = {o.name: o.launches - c for o, c in zip(others, before[1]) if o.launches != c}
+        require(k.launches - before[0] == batch_inv_launches(n) and not moved,
+                f"batch_inv {name}: {k.launches - before[0]} launches of its kernel "
+                f"({batch_inv_launches(n)} expected), others {moved}")
+        row["max_abs_err"] = max(row["max_abs_err"], check(
+            f"batch_inv {name}", got, run_plain(L.batch_inv_plain, x)))
+        # a stored value v is the Montgomery form of v / R: its inverse's is R^2 / v
+        want = [pow(int(v), -1, L.P) * r2 % L.P if v else 0 for v in L.limbs_to_ints(x)]
+        require([int(v) for v in L.limbs_to_ints(got)] == want,
+                f"batch_inv {name}: kernel differs from Python integers")
+        if name.startswith("all-zero"):
+            continue
+        bound = batch_inv_bound(n, int_rate)
+        size = dict(ms=time_ms(lambda: L.batch_inv_kernel(x), queued=True),
+                    launches=batch_inv_launches(n), bound_ms=bound[0], bound_by=bound[1])
+        if n == BATCH_INV_HEAD:
+            size["plain_ms"] = timed_once(lambda: run_plain(L.batch_inv_plain, x))[1]
+            head = x
+        row["by_size"][name] = size
+
+    copies0 = L.copies
+    strided = torch.stack([head, head], dim=1)[:, 0]
+    buf = torch.empty(head.numel() + 1, dtype=L.DTYPE, device=dev)
+    misaligned = buf[1:].view(head.shape)
+    misaligned.copy_(head)
+    want = L.batch_inv_kernel(head)
+    for view in (strided, misaligned):
+        check("batch_inv from a strided or misaligned view", L.batch_inv(view), want)
+    require(L.copies - copies0 == 2, f"{L.copies - copies0} copies for two views (2 expected)")
+
+    head_size = row["by_size"][f"n={BATCH_INV_HEAD}"]
+    row.update(shape=f"n={BATCH_INV_HEAD}", ms=head_size["ms"], plain_ms=head_size["plain_ms"],
+               bound_ms=head_size["bound_ms"], bound_by=head_size["bound_by"],
+               launches_own_phase=k.launches - launches0)
+    print(f"batch_inv: bit-exact against batch_inv_plain and Python integers at {sizes} elements "
+          f"(C = {cap}: {L.BATCH_INV_THREADS} threads x {L.BATCH_INV_PER_THREAD}), zeros first, in "
+          "the middle and last, and all-zero at 284 and C + 1; one launch up to C, three above; "
+          "a strided and a misaligned operand copied once each; " + json.dumps(row["by_size"]),
+          flush=True)
     return row
 
 
@@ -1537,6 +1701,7 @@ def main() -> int:
     product = product_phase(dev)
     limb_rows = limb_phase(dev, int_rate, logs)
     limb_rows["limbs_mont_inv_fermat"] = inversion_phase(dev, int_rate)
+    limb_rows["limbs_batch_inv"] = batch_inv_phase(dev, int_rate)
     rows = compare_kernels(dev, int_rate, logs)
     rows.update(limb_rows)
     fixture_phase(dev)

@@ -68,13 +68,14 @@ static Barrier block_barrier;
 #define __launch_bounds__(...)
 struct alignas(16) longlong2 { long long x, y; };
 static inline void __syncthreads() { block_barrier.wait(); }
-// __shfl_sync within groups of `width` (4) threads: each group meets at its
-// own barrier, so warps that skip a level together skip its shuffles too
-static Barrier group_barrier[256];
+// __shfl_sync within groups of `width` threads (a power of two up to 32):
+// each group meets at its own barrier, so groups that skip a shuffle
+// together (warps that skip a level, lanes of one warp) need not wait
+static Barrier group_barrier[6][1024];
 static uint64_t shfl_slot[1024];
 template <class T> static T __shfl_sync(unsigned, T v, int src, int width) {
   const unsigned t = threadIdx.x, base = t & ~(unsigned)(width - 1);
-  Barrier& b = group_barrier[t / width];
+  Barrier& b = group_barrier[__builtin_ctz((unsigned)width)][t / width];
   shfl_slot[t] = (uint64_t)v;
   b.wait();
   const T r = (T)shfl_slot[base + ((unsigned)src & (unsigned)(width - 1))];
@@ -90,10 +91,12 @@ Fe4 sh[1 << 13];
 uint32_t rescue_smem[1 << 14];
 #include "montmul_chain.cu"
 #include "limbs.cu"
+#include "batch_inv.cu"
 longlong2 leaf_smem[1 + 4 * 64];
 longlong2 fold_smem[1 << 12];
 longlong2 node_smem[1 << 12];
 longlong2 limbs_smem[1 << 12];
+longlong2 batch_inv_smem[3 * 32 + 1];
 
 extern "C" void host_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n) {
   for (int i = 0; i < n; ++i)
@@ -108,8 +111,12 @@ static void grid(unsigned blocks) {
 template <class F> static void run_block(unsigned threads, F body) {
   blockDim.x = threads;
   block_barrier.count = threads;
-  for (unsigned g = 0; g < 256; ++g)
-    group_barrier[g].count = 4 * g >= threads ? 1 : (threads - 4 * g < 4 ? threads - 4 * g : 4);
+  for (unsigned w = 0; w < 6; ++w)
+    for (unsigned g = 0; g < 1024; ++g) {
+      const unsigned base = g << w, width = 1u << w;
+      const unsigned left = base >= threads ? 1 : threads - base;
+      group_barrier[w][g].count = left < width ? left : width;
+    }
   std::vector<std::thread> ts;
   for (unsigned t = 0; t < threads; ++t)
     ts.emplace_back([=] { threadIdx.x = t; threadIdx.y = threadIdx.z = 0; body(); });
@@ -217,6 +224,27 @@ extern "C" void host_limbs(int op, const int64_t* a, const int64_t* b, int64_t* 
     });
   }
 }
+// one launch of the batch inversion: `blocks` blocks of `threads` threads,
+// `per_thread` elements each (ops/limbs.py batch_inv_grid's launch)
+extern "C" void host_batch_inv(const int64_t* a, int64_t* out, int64_t n, int64_t* totals,
+                               const int64_t* inv_totals, int blocks, int threads,
+                               int per_thread) {
+  grid(blocks);
+  gridDim.x = blocks;
+  for (int bx = 0; bx < blocks; ++bx) {
+    blockIdx.x = bx;
+    run_block(threads, [=] {
+      if (per_thread == 1) batch_inv_kernel_k1(a, out, n, totals, inv_totals);
+      if (per_thread == 2) batch_inv_kernel_k2(a, out, n, totals, inv_totals);
+      if (per_thread == 4) batch_inv_kernel_k4(a, out, n, totals, inv_totals);
+      if (per_thread == 8) batch_inv_kernel_k8(a, out, n, totals, inv_totals);
+    });
+  }
+}
+// inverse.cuh's binary inversion, element by element
+extern "C" void host_inv_binary(const int64_t* a, int64_t* out, int n) {
+  for (int i = 0; i < n; ++i) zk::store_fe(out + 8 * i, zk::inv_binary(zk::load_fe(a + 8 * i)));
+}
 // the inversion kernel on a grid of `blocks` blocks of one thread each
 // (a grid-stride loop over n elements)
 extern "C" void host_inv(const int64_t* a, int64_t* out, int64_t n, int blocks) {
@@ -259,6 +287,9 @@ def lib(tmp_path_factory):
     lib.host_fold.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     lib.host_node.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
     lib.host_inv.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int]
+    lib.host_inv_binary.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.host_batch_inv.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+                                   + [ctypes.c_int] * 3)
     return lib
 
 
@@ -397,6 +428,97 @@ def test_inv_kernel_source(lib, blocks):
     lib.host_inv(*_ptrs(a, out), len(vals), blocks)
     assert [int(v) for v in L.mont_to_ints(out)] == [pow(v, -1, P) if v else 0 for v in vals]
     assert torch.equal(out, L.mont_inv_fermat_plain(a))
+
+
+def test_inv_binary_source(lib):
+    """inverse.cuh's binary extended Euclid (the batch inversion's root)
+    against Python's pow(a, -1, p) and the Fermat chain's plain version on
+    0, 1, p-1, p-2, R mod p, 2^k (k < 128: its runs of zeros, a whole word
+    of them among them) and 4096 seeded random elements, as stored limbs."""
+    rng = np.random.default_rng(13)
+    rand = [int(h) << 64 | int(lo) for h, lo in zip(rng.integers(0, 1 << 63, 4096, dtype=np.uint64),
+                                                    rng.integers(0, 1 << 63, 4096, dtype=np.uint64))]
+    vals = [0, 1, P - 1, P - 2, L.R_INT] + [1 << k for k in range(128)] + [v % P for v in rand]
+    a = L.from_numpy(L.ints_to_limbs(vals), "cpu")
+    out = torch.full_like(a, -1)
+    lib.host_inv_binary(*_ptrs(a, out), len(vals))
+    r2 = L.R_INT * L.R_INT % P
+    assert [int(v) for v in L.limbs_to_ints(out)] == [pow(v, -1, P) * r2 % P if v else 0
+                                                      for v in vals]
+    assert torch.equal(out, L.mont_inv_fermat_plain(a))
+
+
+def _batch_inv_values(n, seed):
+    """n seeded random elements in Montgomery form with zeros first, in the
+    middle and last, and 1 and p-1 after the first zero (as many as fit)."""
+    x = _rand_mont(seed, n)
+    edges = L.ints_to_mont([1, P - 1], "cpu")
+    x[1:3] = edges[:max(0, min(2, n - 1))]
+    for i in (0, n // 2, n - 1):
+        x[i] = 0
+    return x
+
+
+def _batch_inv_source(lib, x, threads=0, per_thread=0):
+    """csrc/batch_inv.cu's launches as ops/limbs.py batch_inv_grid plans
+    them (blocks of ``threads`` threads at most and ``per_thread`` elements
+    a thread; the defaults where 0), each through the emulated source:
+    (output, the launches' (n, blocks, threads, writes totals, reads
+    inverses))."""
+    launches = []
+
+    def launch(src, out, n, totals, inv_totals, blocks, width, k):
+        launches.append((n, blocks, width, totals is not None, inv_totals is not None))
+        lib.host_batch_inv(*(None if t is None else t.data_ptr()
+                             for t in (src, out)), n,
+                           *(None if t is None else t.data_ptr() for t in (totals, inv_totals)),
+                           blocks, width, k)
+
+    return L.batch_inv_grid(x, launch, threads, per_thread), launches
+
+
+BATCH_INV_CAPACITY = L.BATCH_INV_THREADS * L.BATCH_INV_PER_THREAD
+
+
+@pytest.mark.parametrize("n", [1, 31, 284, 1024, BATCH_INV_CAPACITY])
+def test_batch_inv_kernel_source_one_block(lib, n):
+    """batch_inv.cu in one block of the default widths (narrowed to the
+    least power of two of at least a warp that holds n: 32, 32, 128, 256
+    threads of 4 elements; the warps' scan across 1, 4 and 8 warps), the
+    block's total inverted in place (inverse.cuh inv_binary), zeros first,
+    in the middle and last: bit for bit against batch_inv_plain and Python
+    integers, in one launch."""
+    x = _batch_inv_values(n, 100 + n)
+    out, launches = _batch_inv_source(lib, x)
+    assert len(launches) == 1 and launches[0][:2] == (n, 1)
+    assert launches[0][2] == min(L.BATCH_INV_THREADS, max(32, 1 << (-(-n // 4) - 1).bit_length()))
+    assert torch.equal(out, L.batch_inv_plain(x))
+    r2 = L.R_INT * L.R_INT % P
+    assert [int(v) for v in L.limbs_to_ints(out)] == [
+        pow(int(v), -1, P) * r2 % P if v else 0 for v in L.limbs_to_ints(x)]
+
+
+#: (n, threads, elements a thread, launches) of the emulated grids above a
+#: block's capacity: 4 blocks of one partial warp, 4 blocks of 2 warps,
+#: 5 blocks of 2 elements a thread, 4 blocks of 8 elements, and 37 elements
+#: in blocks of 4 (10 totals, their 3 totals: the totals' inversion recurses)
+BATCH_INV_GRIDS = [(50, 8, 2, 3), (200, 64, 1, 3), (300, 32, 2, 3), (100, 4, 8, 3), (37, 4, 1, 5)]
+
+
+@pytest.mark.parametrize("n, threads, per_thread, count", BATCH_INV_GRIDS,
+                         ids=[f"n{n}-threads{t}-k{k}" for n, t, k, _ in BATCH_INV_GRIDS])
+def test_batch_inv_kernel_source_blocks(lib, n, threads, per_thread, count):
+    """Above a block's capacity (lowered to 16-128 elements), the three
+    launches (totals, their inverses, outputs) of three to nine blocks, and
+    five where the totals outnumber a block's capacity, zeros included: bit
+    for bit against batch_inv_plain."""
+    x = _batch_inv_values(n, 200 + n)
+    out, launches = _batch_inv_source(lib, x, threads, per_thread)
+    blocks = -(-n // (threads * per_thread))
+    assert blocks >= 3 and len(launches) == count
+    assert launches[0] == (n, blocks, threads, True, False)
+    assert launches[-1] == (n, blocks, threads, False, True)
+    assert torch.equal(out, L.batch_inv_plain(x))
 
 
 #: op: (its code in host_limbs, the plain version, the JAX package's function

@@ -120,10 +120,52 @@ def test_batch_inv(operands, n):
     assert [int(v) for v in L.mont_to_ints(got)] == [F.inv(v) for v in a[:n]]
 
 
-def test_batch_inv_matches_jax(operands):
-    a, _ = operands
-    got = L.batch_inv(L.ints_to_mont(a, "cpu"))
-    assert np.array_equal(got.numpy(), np.asarray(JL.batch_inv_jit(JL.ints_to_mont(a))))
+#: batch_inv's cases: the module's 64 operands; sizes either side of the
+#: JAX package's _BATCH_INV_MIN (8), a sign's (284, 512, 1024) and one past
+#: a power of two, with zeros first, in the middle and last and 1 and p-1
+#: after the first; all-zero inputs
+BATCH_INV_SIZES = [1, 2, 7, 8, 9, 284, 512, 1024, 1025]
+BATCH_INV_CASES = ([("operands", 64)] + [("zeros", n) for n in BATCH_INV_SIZES]
+                   + [("all-zero", n) for n in (1, 8, 284, 1025)])
+#: lengths the JAX package compiles batch_inv for: its two forms either side
+#: of _BATCH_INV_MIN, and the operands'; other lengths go through in chunks
+#: of 64 padded with ones (an inverse depends on its element alone)
+JAX_BATCH_INV_LENGTHS = (7, 8, 64)
+
+
+def _batch_inv_case(operands, case, n):
+    if case == "operands":
+        return operands[0]
+    if case == "all-zero":
+        return [0] * n
+    vals = _rand_ints(np.random.default_rng(n), n)
+    vals[1:3] = [1, P - 1][:max(0, min(2, n - 1))]
+    for i in (0, n // 2, n - 1):
+        vals[i] = 0
+    return vals
+
+
+def _jax_batch_inv(vals):
+    if len(vals) in JAX_BATCH_INV_LENGTHS:
+        return np.asarray(JL.batch_inv_jit(JL.ints_to_mont(vals)))
+    step = JAX_BATCH_INV_LENGTHS[-1]
+    chunks = []
+    for lo in range(0, len(vals), step):
+        chunk = vals[lo:lo + step]
+        padded = JL.ints_to_mont(chunk + [1] * (step - len(chunk)))
+        chunks.append(np.asarray(JL.batch_inv_jit(padded))[:len(chunk)])
+    return np.concatenate(chunks)
+
+
+@pytest.mark.parametrize("case, n", BATCH_INV_CASES, ids=[f"{c}-{n}" for c, n in BATCH_INV_CASES])
+def test_batch_inv_matches_jax(operands, case, n):
+    """The batch inversion kernel's plain version (and the dispatching name
+    on the CPU) against the JAX package's batch_inv and Python's pow."""
+    vals = _batch_inv_case(operands, case, n)
+    got = L.batch_inv_plain(L.ints_to_mont(vals, "cpu"))
+    assert torch.equal(L.batch_inv(L.ints_to_mont(vals, "cpu")), got)
+    assert np.array_equal(got.numpy(), _jax_batch_inv(vals))
+    assert [int(v) for v in L.mont_to_ints(got)] == [pow(v, -1, P) if v else 0 for v in vals]
 
 
 def test_mont_inv_fermat_plain_matches_jax(operands):
@@ -178,8 +220,9 @@ DISPATCH = [
     (L.sub_mod, L.sub_mod_plain, L.sub_mod_kernel, 2),
     (L.redc, L.redc_plain, L.redc_kernel, 1),
     (L.mont_inv_fermat, L.mont_inv_fermat_plain, L.mont_inv_fermat_kernel, 1),
+    (L.batch_inv, L.batch_inv_plain, L.batch_inv_kernel, 1),
 ]
-DISPATCH_IDS = ["mont_mul", "add_mod", "sub_mod", "redc", "mont_inv_fermat"]
+DISPATCH_IDS = ["mont_mul", "add_mod", "sub_mod", "redc", "mont_inv_fermat", "batch_inv"]
 
 
 @pytest.mark.parametrize("fn, plain, kernel, arity", DISPATCH, ids=DISPATCH_IDS)
@@ -210,7 +253,7 @@ def test_kernel_wrappers_refuse_cpu_and_mixed_devices(operands, fn, plain, kerne
 
 def test_limb_kernels_name_their_counterparts():
     assert [k.name for k in L.KERNELS] == [f"limbs_{op}" for op in DISPATCH_IDS]
-    assert {k.library for k in L.KERNELS} == {"limbs"}
+    assert {k.library for k in L.KERNELS} == {"limbs", "batch_inv"}
     assert all(k.replaces.startswith("zk_stark_tpu/ops/limbs.py:") for k in L.KERNELS)
 
 
@@ -302,8 +345,8 @@ def test_plain_versions_reach_no_dispatching_name(monkeypatch, operands):
     """The plain kernel versions that chip_smoke.py holds the kernels
     against on the card run their own tensor code: with the dispatching
     names raising, the plain fold, NTT (its power table built anew), leaf
-    and node digests, Rescue permutation, chained product and inversion
-    still run and equal what they gave before."""
+    and node digests, Rescue permutation, chained product, inversion and
+    batch inversion still run and equal what they gave before."""
     from zk_stark_tpu_torch.models.rescue_prime import RescuePrime
     from zk_stark_tpu_torch.ops import blake2b as B
     from zk_stark_tpu_torch.ops import fold as FO
@@ -326,14 +369,15 @@ def test_plain_versions_reach_no_dispatching_name(monkeypatch, operands):
         return [*FO.fold_plain(cw, invpows, ao, two_inv), N.ntt_plain(cw, root), leaves,
                 B.node_digests_plain(leaves),
                 R.permutation_plain(state, mds, rc, 2, rp.alpha, rp.alpha_inv),
-                MC.mont_mul_chain_plain(cw, 3), L.mont_inv_fermat_plain(cw[:4])]
+                MC.mont_mul_chain_plain(cw, 3), L.mont_inv_fermat_plain(cw[:4]),
+                L.batch_inv_plain(cw), L.batch_inv_plain(cw[:7])]
 
     want = run()
 
     def refuse(*args):
         raise AssertionError("a plain version reached a dispatching limb name")
 
-    for name in ("mont_mul", "add_mod", "sub_mod", "redc", "mont_inv_fermat"):
+    for name in ("mont_mul", "add_mod", "sub_mod", "redc", "mont_inv_fermat", "batch_inv"):
         monkeypatch.setattr(L, name, refuse)
     N._powers_dev.cache_clear()
     try:

@@ -39,6 +39,7 @@
 #include <stdint.h>
 
 #include "field.cuh"
+#include "inverse.cuh"
 #include "tiles.cuh"
 
 namespace limbs {
@@ -233,48 +234,22 @@ __device__ __forceinline__ void elementwise(const int64_t* __restrict__ a,
     if (t == 0) tiles::store_wait_all();
 }
 
-// x^(2^k) by k dependent squarings
-__device__ __forceinline__ zk::Fe square_n(zk::Fe x, int k) {
-#pragma unroll 1
-    for (int i = 0; i < k; ++i) x = zk::mont_mul(x, x);
-    return x;
-}
-
-// x^(p-2) = x^-1 (and 0 for 0) by a fixed addition chain.  p - 2 =
-// 406 * 2^119 + (2^119 - 1): the head 406 = 0b110010110 from x^3, then
-// 17 runs of seven ones, each 7 squarings and one product by x^(2^7 - 1).
-// 132 squarings and 24 products (the JAX package's 4-bit windows take 169).
-__device__ __forceinline__ zk::Fe inv_fermat(const zk::Fe& x) {
-    using zk::mont_mul;
-    const zk::Fe o2 = mont_mul(mont_mul(x, x), x);         // x^(2^2 - 1)
-    const zk::Fe o3 = mont_mul(square_n(o2, 1), x);        // x^(2^3 - 1)
-    const zk::Fe o6 = mont_mul(square_n(o3, 3), o3);       // x^(2^6 - 1)
-    const zk::Fe o7 = mont_mul(square_n(o6, 1), x);        // x^(2^7 - 1)
-    zk::Fe acc = mont_mul(square_n(o2, 3), x);             // x^0b11001
-    acc = mont_mul(square_n(acc, 2), x);                   // x^0b1100101
-    acc = mont_mul(square_n(acc, 1), x);                   // x^0b11001011
-    acc = square_n(acc, 1);                                // x^406
-#pragma unroll 1
-    for (int run = 0; run < 17; ++run) acc = mont_mul(square_n(acc, 7), o7);
-    return acc;
-}
-
 constexpr int kInvThreads = 128;
 
 }  // namespace limbs
 
 // out[i] = a[i]^(p-2) (Montgomery form in and out): the counterpart of
 // mont_inv_fermat (zk_stark_tpu/ops/limbs.py:366, XLA-fused).  One thread
-// an element, all in registers.  Bound: the chain's 156 dependent products
-// (64 instructions each, field.cuh) against 128 bytes an element, so
-// operations; a call of one element (batch_inv's root, its only caller on
-// the paths) takes one thread's chain of dependent products.
+// an element, all in registers (inverse.cuh inv_fermat).  Bound: the
+// chain's 156 dependent products (64 instructions each, field.cuh) against
+// 128 bytes an element, so operations.  No path calls it: batch_inv has its
+// own kernel (csrc/batch_inv.cu).
 extern "C" __global__ void __launch_bounds__(limbs::kInvThreads)
     limbs_inv_kernel(const int64_t* __restrict__ a, int64_t* __restrict__ out, int64_t n) {
     const int64_t stride = (int64_t)blockDim.x * gridDim.x;
     for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
         const zk::Fe x = tiles::load_fe<true>(a + 8 * i, 0);
-        tiles::store_fe(out + 8 * i, limbs::inv_fermat(x), 0);
+        tiles::store_fe(out + 8 * i, zk::inv_fermat(x), 0);
     }
 }
 

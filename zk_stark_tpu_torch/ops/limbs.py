@@ -17,11 +17,13 @@ That tensor code is the plain version (``mont_mul_plain``, ``add_mod_plain``,
 ``sub_mod_plain``, ``redc_plain``) of ``csrc/limbs.cu``, which computes each
 of the four in one launch on the card.  ``mont_mul``, ``add_mod``,
 ``sub_mod`` and ``redc`` launch the kernel on CUDA tensors (or raise) and
-run the plain version on CPU tensors; so does ``mont_inv_fermat``, the
+run the plain version on CPU tensors; so do ``mont_inv_fermat``, the
 elementwise inverse (one launch of the kernel's fixed addition chain, or
-``mont_inv_fermat_plain``).  Everything else here (``neg_mod``,
-``to_mont``, ``from_mont``, the powers, scans and ``batch_inv``) is built
-on those five, and never leaves the tensors' device.
+``mont_inv_fermat_plain``), and ``batch_inv``, the batched inverse (one
+launch of ``csrc/batch_inv.cu`` up to its block's capacity, three above,
+or ``batch_inv_plain``, a product tree).  Everything else here
+(``neg_mod``, ``to_mont``, ``from_mont``, the powers and scans) is built on
+those six, and never leaves the tensors' device.
 """
 
 from __future__ import annotations
@@ -292,7 +294,23 @@ INV_KERNEL = _build.Kernel(
     replaces="zk_stark_tpu/ops/limbs.py:366 (mont_inv_fermat, XLA-fused)",
     name="limbs_mont_inv_fermat",
 )
-KERNELS = (MONT_MUL_KERNEL, ADD_MOD_KERNEL, SUB_MOD_KERNEL, REDC_KERNEL, INV_KERNEL)
+BATCH_INV_KERNEL = _build.Kernel(
+    "batch_inv", "batch_inv_launch",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    replaces="zk_stark_tpu/ops/limbs.py:410 (batch_inv) with :366 (mont_inv_fermat), XLA-fused",
+    name="limbs_batch_inv",
+)
+KERNELS = (MONT_MUL_KERNEL, ADD_MOD_KERNEL, SUB_MOD_KERNEL, REDC_KERNEL, INV_KERNEL,
+           BATCH_INV_KERNEL)
+
+#: the batch inversion's block (csrc/batch_inv.cu): at most this many
+#: threads (a power of two), each taking this many elements (1, 2, 4 or 8);
+#: a call of at most their product, the block's capacity, is one launch
+BATCH_INV_THREADS = 256
+BATCH_INV_PER_THREAD = 4
+#: the narrowest block the kernel takes (a warp)
+BATCH_INV_MIN_THREADS = 32
 
 #: operands :func:`kernel_plan` copied to a contiguous layout (a limb stride
 #: other than 1, a start or an element stride off the 16-byte grid, or more
@@ -489,6 +507,64 @@ def mont_inv_fermat_kernel(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def batch_inv_grid(x: torch.Tensor, launch, threads: int = 0, per_thread: int = 0) -> torch.Tensor:
+    """The launches of ``csrc/batch_inv.cu`` for x [n, 8] (n >= 1,
+    contiguous, 16-byte aligned): ``launch(a, out, n, totals, inv_totals,
+    blocks, threads, per_thread)`` once for n up to a block's capacity C =
+    threads * per_thread (defaults BATCH_INV_THREADS, BATCH_INV_PER_THREAD),
+    in the narrowest block of a power of two threads (at least a warp)
+    that holds n; else three times: the blocks' totals into scratch, their
+    inverses by this function on the totals (one launch up to C blocks, so
+    n up to C^2; beyond, it recurses), the outputs.  Grid, widths and
+    scratch follow from n alone, and nothing waits for the card, so a CUDA
+    graph may capture the launches.  Returns the output [n, 8]."""
+    threads = threads or BATCH_INV_THREADS
+    per_thread = per_thread or BATCH_INV_PER_THREAD
+    n = x.shape[0]
+    cap = threads * per_thread
+    out = torch.empty_like(x)
+    if n <= cap:
+        narrow = 1 << (-(-n // per_thread) - 1).bit_length()
+        width = min(threads, max(narrow, BATCH_INV_MIN_THREADS))
+        launch(x, out, n, None, None, 1, width, per_thread)
+        return out
+    blocks = -(-n // cap)
+    totals = torch.empty((blocks, NLIMB), dtype=DTYPE, device=x.device)
+    launch(x, None, n, totals, None, blocks, threads, per_thread)
+    inv_totals = batch_inv_grid(totals, launch, threads, per_thread)
+    launch(x, out, n, None, inv_totals, blocks, threads, per_thread)
+    return out
+
+
+def batch_inv_kernel(a: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/batch_inv.cu`` (:func:`batch_inv_grid`: one launch up
+    to BATCH_INV_THREADS * BATCH_INV_PER_THREAD elements, three above);
+    same contract as :func:`batch_inv_plain`.  An operand that is not
+    contiguous or starts off the 16-byte grid is copied first (counted in
+    :data:`copies`)."""
+    global copies
+    dev = _check_operands("batch_inv_kernel", a)
+    if not a.is_contiguous() or a.data_ptr() & 15:
+        a = a.clone(memory_format=torch.contiguous_format)
+        copies += 1
+    x = a.view(-1, NLIMB)
+    n = x.shape[0]
+    if n == 0:
+        return a
+    if n > MAX_KERNEL_ELEMENTS:
+        raise ValueError(f"batch_inv_kernel: {n} elements, the kernel indexes at most "
+                         f"{MAX_KERNEL_ELEMENTS}")
+    stream = _build.stream_ptr(dev)
+
+    def launch(src, out, count, totals, inv_totals, blocks, threads, per_thread):
+        BATCH_INV_KERNEL(src.data_ptr(), None if out is None else out.data_ptr(), count,
+                         None if totals is None else totals.data_ptr(),
+                         None if inv_totals is None else inv_totals.data_ptr(),
+                         blocks, threads, per_thread, stream)
+
+    return batch_inv_grid(x, launch).view(a.shape)
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a*b*R^-1 mod p, broadcasting: the kernel unless both lie on the CPU."""
     if a.is_cpu and b.is_cpu:
@@ -523,6 +599,14 @@ def mont_inv_fermat(a: torch.Tensor) -> torch.Tensor:
     if a.is_cpu:
         return mont_inv_fermat_plain(a)
     return mont_inv_fermat_kernel(a)
+
+
+def batch_inv(a: torch.Tensor) -> torch.Tensor:
+    """Batched modular inversion over every leading dimension, inv(0) == 0:
+    the kernel unless ``a`` lies on the CPU."""
+    if a.is_cpu:
+        return batch_inv_plain(a)
+    return batch_inv_kernel(a)
 
 
 def mont_sqr(a: torch.Tensor) -> torch.Tensor:
@@ -641,15 +725,14 @@ def cumprod_mont_blocked(x: torch.Tensor, cols: int | None = None) -> torch.Tens
     return out.reshape(m, NLIMB)[:n]
 
 
-def batch_inv(a: torch.Tensor) -> torch.Tensor:
-    """Batched modular inversion; inv(0) == 0 (the reference convention).
+def batch_inv_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batch inversion kernel; inv(0) == 0 (the
+    reference convention).
 
     The Montgomery product trick over a product tree: the up-sweep
     multiplies pairs level by level, the single root product is inverted
-    by :func:`mont_inv_fermat` on its device (one launch on the card, no
-    round trip to the host, so a captured segment may call this), and the
-    down-sweep hands each child inv(parent) * sibling.  2*log2(n)
-    full-width multiplies in all.
+    by :func:`mont_inv_fermat_plain`, and the down-sweep hands each child
+    inv(parent) * sibling.  2*log2(n) full-width plain products in all.
     """
     shape = a.shape
     flat = a.reshape(-1, NLIMB)
@@ -666,14 +749,14 @@ def batch_inv(a: torch.Tensor) -> torch.Tensor:
     levels = [b]
     while levels[-1].shape[0] > 1:
         cur = levels[-1]
-        levels.append(mont_mul(cur[0::2], cur[1::2]))
+        levels.append(mont_mul_plain(cur[0::2], cur[1::2]))
 
-    inv = mont_inv_fermat(levels[-1])
+    inv = mont_inv_fermat_plain(levels[-1])
 
     for cur in reversed(levels[:-1]):
         # children (l, r) of a parent with inverse q: inv(l) = q*r, inv(r) = q*l
         sib = cur.reshape(-1, 2, NLIMB).flip(1)
-        inv = mont_mul(inv.unsqueeze(1), sib).reshape(-1, NLIMB)
+        inv = mont_mul_plain(inv.unsqueeze(1), sib).reshape(-1, NLIMB)
 
     inv = inv[:n]
     inv = torch.where(zero.unsqueeze(-1), torch.zeros_like(inv), inv)

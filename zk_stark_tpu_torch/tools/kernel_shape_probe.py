@@ -25,7 +25,29 @@ and where a pass of ``csrc/ntt.cu`` spends its time:
   trees (the latter also launch by launch) and one level of 2^19 parents,
   queued;
 - ``node_level``: one level of 2^19 parents (``node_kernel``'s form) in
-  blocks of 2^8 to 2^11 children and 128 or 256 threads, queued.
+  blocks of 2^8 to 2^11 children and 128 or 256 threads, queued;
+- ``root_inverse``: the inversion of one element on one thread, by the
+  addition chain (``csrc/inverse.cuh`` ``inv_fermat``), by the binary
+  extended Euclid (``inv_binary``, what ``csrc/batch_inv.cu`` inverts its
+  total with) and by the same with each round one path of selects through
+  both cases in place of its branch, or with its subtractions and
+  additions in C in place of PTX carry chains: each first held against
+  Python integers on 0, 1, p-1, p-2, R mod p and 16,384 random elements
+  (one thread an element), then timed as a chain of 1 and of 65
+  dependent inversions in one launch (the difference over 64 is the
+  latency of one);
+- ``batch_inv_shapes``: ``batch_inv_kernel`` at 1024, 4096 and 2^18
+  elements with blocks of 64 to 1024 threads and 1 to 8 elements a thread
+  (``ops/limbs.py`` ``BATCH_INV_THREADS``, ``BATCH_INV_PER_THREAD``;
+  at 1024 and 4096 only the shapes one block holds), each result bit for
+  bit the default's, queued;
+- ``batch_inv_builds``: ``csrc/batch_inv.cu`` as it is and in builds
+  whose launch bounds allow other register counts, whose block total is
+  inverted by the addition chain, or not at all (a wrong result: the time
+  of everything but the root), or whose scans branch around the products
+  of the lanes with nothing to multiply: each build's registers and
+  spills and its time at 1, 284, 1024 and 2^18 elements in the default
+  shape, queued.
 
     python -m zk_stark_tpu_torch.tools.kernel_shape_probe [SECTION ...]
 
@@ -103,6 +125,131 @@ extern "C" int carry_launch(void* out, uint32_t a, uint32_t b) {
     return (int)cudaGetLastError();
 }
 """
+
+
+#: the root inversion's probe kernels (csrc/inverse.cuh): one thread's
+#: chain of `reps` dependent inversions, and one thread an element
+_ROOT = r"""
+#include <stdint.h>
+#include <cuda_runtime.h>
+#include "inverse.cuh"
+// inv_binary's rounds as one path of selects through both cases, no branch
+// on the comparison (its additions and subtractions in C)
+__device__ zk::Fe select(bool c, const zk::Fe& x, const zk::Fe& y) {
+    zk::Fe r;
+    for (int j = 0; j < 4; ++j) r.w[j] = c ? x.w[j] : y.w[j];
+    return r;
+}
+__device__ zk::Fe inv_binary_selects(const zk::Fe& x) {
+    if ((x.w[0] | x.w[1] | x.w[2] | x.w[3]) == 0) return x;
+    zk::Fe u = zk::p_fe(), v = x, r{{0u, 0u, 0u, 0u}}, s{{1u, 0u, 0u, 0u}};
+    uint32_t r4 = 0, s4 = 0;
+    int k = zk::strip_zeros(v);
+    for (;;) {
+        zk::Fe du, dv;
+        zk::sub4(du, u, v);
+        const bool gt = zk::sub4(dv, v, u) != 0;
+        zk::Fe a = select(gt, du, dv), big = select(gt, r, s), small = select(gt, s, r);
+        uint32_t big4 = gt ? r4 : s4, small4 = gt ? s4 : r4;
+        big4 += small4 + zk::add4(big, big, small);
+        const bool done = (a.w[0] | a.w[1] | a.w[2] | a.w[3]) == 0;
+        const int z = done ? 1 : zk::strip_zeros(a);
+        zk::shift_left5(small, small4, z);
+        k += z;
+        u = select(gt, a, u);
+        v = select(gt, v, a);
+        r = select(gt, big, small);
+        s = select(gt, small, big);
+        r4 = gt ? big4 : small4;
+        s4 = gt ? small4 : big4;
+        if (done) break;
+    }
+    return zk::inverse_from_rounds(r, r4, k);
+}
+// inv_binary's rounds with their subtractions and additions in C (64-bit
+// arithmetic, field.cuh sub4 / add4) in place of PTX carry chains
+__device__ zk::Fe inv_binary_c(const zk::Fe& x) {
+    if ((x.w[0] | x.w[1] | x.w[2] | x.w[3]) == 0) return x;
+    zk::Fe u = zk::p_fe(), v = x, r{{0u, 0u, 0u, 0u}}, s{{1u, 0u, 0u, 0u}};
+    uint32_t r4 = 0, s4 = 0;
+    int k = zk::strip_zeros(v);
+    for (;;) {
+        zk::Fe du, dv;
+        zk::sub4(du, u, v);
+        if (zk::sub4(dv, v, u)) {
+            u = du;
+            r4 += s4 + zk::add4(r, r, s);
+            const int z = zk::strip_zeros(u);
+            zk::shift_left5(s, s4, z);
+            k += z;
+        } else {
+            v = dv;
+            s4 += r4 + zk::add4(s, s, r);
+            if ((v.w[0] | v.w[1] | v.w[2] | v.w[3]) == 0) {
+                zk::shift_left5(r, r4, 1);
+                k += 1;
+                break;
+            }
+            const int z = zk::strip_zeros(v);
+            zk::shift_left5(r, r4, z);
+            k += z;
+        }
+    }
+    return zk::inverse_from_rounds(r, r4, k);
+}
+__device__ zk::Fe inv(const zk::Fe& x, int method) {
+    return method == 0 ? zk::inv_fermat(x) : method == 1 ? zk::inv_binary(x)
+         : method == 2 ? inv_binary_selects(x) : inv_binary_c(x);
+}
+extern "C" __global__ void root_chain_kernel(const int64_t* a, int64_t* out, int reps, int method) {
+    zk::Fe x = zk::load_fe(a);
+    for (int r = 0; r < reps; ++r) x = inv(x, method);
+    zk::store_fe(out, x);
+}
+extern "C" __global__ void root_each_kernel(const int64_t* a, int64_t* out, int64_t n, int method) {
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) zk::store_fe(out + 8 * i, inv(zk::load_fe(a + 8 * i), method));
+}
+extern "C" int root_chain_launch(const void* a, void* out, int reps, int method, void* stream) {
+    root_chain_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int64_t*)a, (int64_t*)out, reps,
+                                                         method);
+    return (int)cudaGetLastError();
+}
+extern "C" int root_each_launch(const void* a, void* out, int64_t n, int method, void* stream) {
+    root_each_kernel<<<(int)((n + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)a, (int64_t*)out, n, method);
+    return (int)cudaGetLastError();
+}
+"""
+#: the root inversions the probe times: name -> its code in _ROOT
+ROOT_METHODS = {"addition chain": 0, "binary extended Euclid": 1,
+                "binary extended Euclid, selects": 2,
+                "binary extended Euclid, C carries": 3}
+#: the root inversions' chains: 1 and ROOT_REPS + 1 (odd: the result is the
+#: inverse) dependent inversions in a launch
+ROOT_REPS = 64
+ROOT_RANDOM = 1 << 14
+#: the batch inversion's sizes and (threads, elements a thread) shapes
+BATCH_INV_SIZES = (1 << 10, 1 << 12, 1 << 18)
+BATCH_INV_SHAPES = tuple((t, k) for t in (64, 128, 256, 512, 1024) for k in (1, 2, 4, 8))
+
+
+_BINV_BOUNDS = "constexpr int kMaxThreads = 1024;"
+_BINV_ROOT = "*root = zk::inv_binary(wp);"
+_BINV_SCAN = """        pre = zk::mont_mul(pre, lane >= d ? up : one());
+        suf = zk::mont_mul(suf, lane + d < width ? down : one());"""
+_BINV_SCAN_BRANCHES = """        if (lane >= d) pre = zk::mont_mul(pre, up);
+        if (lane + d < width) suf = zk::mont_mul(suf, down);"""
+#: builds of csrc/batch_inv.cu beside the source as it is: name -> (the
+#: text replaced, its replacement, whether the result stays right)
+BATCH_INV_BUILDS = {
+    "launch bounds 256": (_BINV_BOUNDS, "constexpr int kMaxThreads = 256;", True),
+    "launch bounds 512": (_BINV_BOUNDS, "constexpr int kMaxThreads = 512;", True),
+    "root by the addition chain": (_BINV_ROOT, "*root = zk::inv_fermat(wp);", True),
+    "root not inverted": (_BINV_ROOT, "*root = wp;", False),
+    "scan with branches": (_BINV_SCAN, _BINV_SCAN_BRANCHES, True),
+}
+BATCH_INV_BUILD_SIZES = (1, 284, 1024, 1 << 18)
 
 
 def _build_variant(name: str, source: str) -> ctypes.CDLL:
@@ -366,6 +513,122 @@ def carry_flag(dev) -> list:
     return rows
 
 
+def euclid_rounds(x: int) -> int:
+    """Rounds of inverse.cuh's inv_binary for a stored value 0 < x < p
+    (a model of its loop)."""
+    u, v, rounds = L.P, x >> ((x & -x).bit_length() - 1), 0
+    while v:
+        rounds += 1
+        if u > v:
+            u -= v
+            u >>= (u & -u).bit_length() - 1
+        else:
+            v -= u
+            v = v >> ((v & -v).bit_length() - 1) if v else 0
+    return rounds
+
+
+def root_inverse(dev, gen) -> list:
+    lib = _build_variant("root_inverse", _ROOT)
+    lib.root_chain_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.root_each_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int]
+                                     + [ctypes.c_void_p])
+    stream = _build.stream_ptr(dev)
+    r2 = L.R_INT * L.R_INT % L.P
+    x = torch.cat([L.from_numpy(L.ints_to_limbs([0, 1, L.P - 1, L.P - 2, L.R_INT]), dev),
+                   _random(ROOT_RANDOM, gen, dev)])
+    want = [pow(int(v), -1, L.P) * r2 % L.P if v else 0 for v in L.limbs_to_ints(x)]
+    rows = []
+    for name, method in ROOT_METHODS.items():
+        out = torch.empty_like(x)
+        if lib.root_each_launch(x.data_ptr(), out.data_ptr(), x.shape[0], method, stream):
+            raise RuntimeError(f"root_inverse: {name} failed to launch")
+        if [int(v) for v in L.limbs_to_ints(out)] != want:
+            raise RuntimeError(f"root_inverse: {name} differs from Python integers")
+        one = torch.empty_like(x[:1])
+        times = {}
+        for reps in (1, ROOT_REPS + 1):
+            def call():
+                if lib.root_chain_launch(x[5:6].data_ptr(), one.data_ptr(), reps, method, stream):
+                    raise RuntimeError(f"root_inverse: {name} failed to launch")
+            times[reps] = M.time_ms(call, queued=True)
+            if reps > 1 and [int(v) for v in L.limbs_to_ints(one)] != want[5:6]:
+                raise RuntimeError(f"root_inverse: {name}'s chain differs")
+        ms = (times[ROOT_REPS + 1] - times[1]) / ROOT_REPS
+        # the chain alternates between the element and its inverse
+        rounds = (euclid_rounds(int(L.limbs_to_ints(x[5:6])[0])) + euclid_rounds(want[5])) / 2
+        rows.append(dict(method=name, ms=ms, one_launch_ms=times[1],
+                         chain_ms=times[ROOT_REPS + 1], euclid_rounds=rounds))
+        print(f"root inverse, {name}: bit-exact on 0, 1, p-1, p-2, R mod p and {ROOT_RANDOM} "
+              f"random elements; {ms * 1e3:.3f} us an inversion on one thread ({ROOT_REPS + 1} in "
+              f"a launch {times[ROOT_REPS + 1]:.5f} ms, one {times[1]:.5f} ms; the Euclid's "
+              f"rounds {rounds})", flush=True)
+    return rows
+
+
+def batch_inv_shapes(dev, gen) -> list:
+    rows = []
+    stream = _build.stream_ptr(dev)
+
+    def launch(src_t, out, n, totals, inv_totals, blocks, threads, per_thread):
+        L.BATCH_INV_KERNEL(src_t.data_ptr(), None if out is None else out.data_ptr(), n,
+                           None if totals is None else totals.data_ptr(),
+                           None if inv_totals is None else inv_totals.data_ptr(),
+                           blocks, threads, per_thread, stream)
+
+    for n in BATCH_INV_SIZES:
+        x = _random(n, gen, dev)
+        x[0] = 0
+        ref = L.batch_inv_kernel(x)
+        for threads, k in BATCH_INV_SHAPES:
+            if n <= 1 << 12 and threads * k < n:
+                continue
+            if not torch.equal(L.batch_inv_grid(x, launch, threads, k), ref):
+                raise RuntimeError(f"batch_inv_shapes: {threads} x {k} differs at n={n}")
+            ms = M.time_ms(lambda: L.batch_inv_grid(x, launch, threads, k), queued=True)
+            rows.append(dict(n=n, threads=threads, per_thread=k, capacity=threads * k, ms=ms))
+            print(f"batch_inv n={n} threads={threads} per_thread={k} (C = {threads * k}): "
+                  f"{ms:.5f} ms queued", flush=True)
+    return rows
+
+
+def batch_inv_builds(dev, gen) -> list:
+    src = (_build.CSRC / "batch_inv.cu").read_text()
+    for piece in (_BINV_BOUNDS, _BINV_ROOT, _BINV_SCAN):
+        if piece not in src:
+            raise RuntimeError(f"batch_inv_builds: csrc/batch_inv.cu no longer has {piece!r}")
+    stream = _build.stream_ptr(dev)
+    inputs = {n: _random(n, gen, dev) for n in BATCH_INV_BUILD_SIZES}
+    refs = {n: L.batch_inv_kernel(x) for n, x in inputs.items()}
+    rows = []
+    builds = {"as it is": (_BINV_BOUNDS, _BINV_BOUNDS, True), **BATCH_INV_BUILDS}
+    for name, (old, new, exact) in builds.items():
+        tag = hashlib.sha256(name.encode()).hexdigest()[:8]
+        lib = _build_variant(f"batch_inv_{tag}", src.replace(old, new))
+        fn = lib.batch_inv_launch
+        fn.argtypes, fn.restype = L.BATCH_INV_KERNEL.argtypes, ctypes.c_int
+
+        def launch(src_t, out, n, totals, inv_totals, blocks, threads, per_thread):
+            rc = fn(src_t.data_ptr(), None if out is None else out.data_ptr(), n,
+                    None if totals is None else totals.data_ptr(),
+                    None if inv_totals is None else inv_totals.data_ptr(), blocks, threads,
+                    per_thread, stream)
+            if rc:
+                raise RuntimeError(f"batch_inv_builds: {name} failed to launch: error {rc}")
+
+        row = dict(build=name, ptxas=_kernel_report(
+            lib.ptxas, f"batch_inv_kernel_k{L.BATCH_INV_PER_THREAD}"))
+        for n, x in inputs.items():
+            if exact and not torch.equal(L.batch_inv_grid(x, launch), refs[n]):
+                raise RuntimeError(f"batch_inv_builds: {name} differs at n={n}")
+            row[f"n={n}"] = M.time_ms(lambda: L.batch_inv_grid(x, launch), queued=True)
+        rows.append(row)
+        print(f"batch_inv build {name} ({row['ptxas']}): "
+              + ", ".join(f"{k} {v:.5f} ms" for k, v in row.items() if k.startswith("n=")),
+              flush=True)
+    return rows
+
+
 SECTIONS = {
     "carry_flag": lambda dev, gen: carry_flag(dev),
     "rescue_blocks": rescue_blocks,
@@ -374,6 +637,9 @@ SECTIONS = {
     "node_trees": node_trees,
     "node_builds": node_builds,
     "node_level": node_level,
+    "root_inverse": root_inverse,
+    "batch_inv_shapes": batch_inv_shapes,
+    "batch_inv_builds": batch_inv_builds,
 }
 
 

@@ -12,7 +12,9 @@ the calls), the median of 5 runs of 20 calls (3 of 5 calls at 2^25).  It
 uses only entry points that every commit since the limb kernel has
 (``ops.limbs`` ``*_kernel``; ``ops.blake2b`` ``leaf_kernel``,
 ``node_kernel`` for one level, ``compress_kernel``; ``ops.fold``
-``fold_kernel``), ``ops.limbs.mont_inv_fermat_kernel`` (at 1 and 2^14
+``fold_kernel``; ``ops.limbs.batch_inv`` at the paths' sizes and 2^20,
+behind the longer sleep below: the tree form of earlier commits launches
+30-70 kernels a call), ``ops.limbs.mont_inv_fermat_kernel`` (at 1 and 2^14
 elements) where the checkout has it, and ``ops.blake2b.tree_kernel``
 where the checkout has it: a tree of 2^12 and of 2^20 leaves is timed whole, by ``tree_kernel``
 or else by ``node_kernel`` one level at a time (behind a longer sleep of
@@ -94,6 +96,13 @@ def main() -> int:
     inv = getattr(L, "mont_inv_fermat_kernel", None)  # the inversion, where the checkout has it
     if inv is not None:
         out["inv"] = {n: timed(lambda: inv(x), n) for n, x in ((1, field(1)), (1 << 14, field(1 << 14)))}
+
+    out["batch_inv"] = {}
+    for n in (284, 512, 1024, 86_657, 1 << 17, 1 << 18, 1 << 20):
+        x = field(n)
+        x[0] = 0
+        out["batch_inv"][n] = tree_timed(lambda: L.batch_inv(x))
+        del x
 
     def level_loop(leaves):  # one node_kernel launch a level
         level = leaves
