@@ -86,6 +86,18 @@ runs (run_plain):
    called directly on the card; two signs of other documents interleaved
    with their verifies (each true, a wrong document rejected); phases 4
    and 6 again, now replaying (no new capture); then the caches cleared;
+7d. (run right after 7a) the distributed engine (zk_stark_tpu_torch/parallel) over NCCL at
+   world size 1 (a FileStore in a temporary directory): DistEngine ntt,
+   intt, batch_inv and fold_round bit for bit against the single engine
+   at 512, 4096 and 2^20, ntt_dist / intt_dist at the same sizes (one
+   all-to-all each); both fixtures through the engine; the default-config
+   sign and the chain prove at 3200 byte for byte against the single
+   engine's from the same rng, each verified by the engine-free verifier;
+   the warm distributed sign and chain prove with the launch counts and
+   the collectives reset just before and read just after (every kernel of
+   the path launched, the elementwise inversion not at all, no segment
+   replayed: the distributed segments run eagerly), beside the single
+   engine's warm times; then the group destroyed and the caches cleared;
 7b. the long transforms: ntt_mont and intt_mont at 2^21, 2^22, 2^24 (the
    four-step) and 2^25 (the three-pass split), then one low-degree
    extension (fast_coset_evaluate: 2^23 coefficients on a 2^25-point
@@ -135,9 +147,11 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -161,6 +175,9 @@ from zk_stark_tpu_torch.ops import ntt as N  # noqa: E402
 from zk_stark_tpu_torch.ops import ntt_variants as NV  # noqa: E402
 from zk_stark_tpu_torch.ops import poly_ops as PO  # noqa: E402
 from zk_stark_tpu_torch.ops import rescue_ops as R  # noqa: E402
+from zk_stark_tpu_torch.parallel import collectives, multihost  # noqa: E402
+from zk_stark_tpu_torch.parallel import dryrun as DR  # noqa: E402
+from zk_stark_tpu_torch.parallel.engine import DEFAULT, dist_engine  # noqa: E402
 from zk_stark_tpu_torch.tools import ntt_variant_probe  # noqa: E402
 from zk_stark_tpu_torch.tools.measure import (  # noqa: E402
     ADD_SUB_OPS,
@@ -198,6 +215,9 @@ FOLD_TIMED = (4096, 1 << 20)
 NODE_LEVEL_PARENTS = (2048, 1 << 19, 1000)
 
 MAIN_PROOF_BYTES = 1_156_888
+#: the distributed engine's operations against the single engine's: a sign's
+#: FRI domain, the default config's, the chain's
+DIST_SIZES = (512, 4096, 1 << 20)
 #: the chain of BASELINE.md config 5: omicron domain 2^18, FRI domain 2^20;
 #: the JAX package's proof length for it (CHAIN_FULL_r04.json)
 CHAIN_LENGTH = 3200
@@ -624,14 +644,15 @@ def recorded_batch_inv():
         L.batch_inv = batch_inv
 
 
-def check_path_launches(path: str, launches: dict, batch_inv_sizes) -> None:
-    """Every kernel of a path launched, but the elementwise inversion not at
-    all (batch_inv has its own kernel), and the batch inversion as its
-    calls of ``batch_inv_sizes`` take (batch_inv_launches)."""
+def check_path_launches(path: str, launches: dict, batch_inv_sizes, may_skip=()) -> None:
+    """Every kernel of a path launched but those named in ``may_skip``, the
+    elementwise inversion not at all (batch_inv has its own kernel), and
+    the batch inversion as its calls of ``batch_inv_sizes`` take
+    (batch_inv_launches)."""
     for name, count in launches.items():
         if name == L.INV_KERNEL.name:
             require(count == 0, f"kernel {name} was launched {count} times by the {path}")
-        else:
+        elif name not in may_skip:
             require(count > 0, f"kernel {name} was not launched by the {path}")
     want = sum(batch_inv_launches(n) for n in batch_inv_sizes)
     require(launches[L.BATCH_INV_KERNEL.name] == want,
@@ -1006,6 +1027,146 @@ def segment_phase(dev) -> dict:
                   reserved_gb_after_clear=torch.cuda.memory_reserved() / 1e9)
     print("segments: a replayed sign equals the bodies called directly byte for byte; two "
           "documents signed and verified in turns; both fixtures reproduced through replays "
+          + json.dumps(result), flush=True)
+    return result
+
+
+def dist_phase(dev, kernels) -> dict:
+    """Phase 7d: the distributed engine over NCCL at world size 1."""
+    fixtures = ROOT / "tests" / "fixtures"
+    meta = json.loads((fixtures / "meta.json").read_text())
+    chain_meta = json.loads((fixtures / "chain_meta.json").read_text())
+    torch.cuda.set_device(dev)
+    tmp = tempfile.mkdtemp()
+    require(multihost.initialize(f"file://{tmp}/rendezvous", 1, 0, dev),
+            "the process group did not start")
+    try:
+        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not nccl")
+        eng = dist_engine(1)
+        require(eng.is_distributed and not eng.captures_segments and DEFAULT.captures_segments,
+                "the distributed engine captures its segments, or the single one does not")
+        ops = DR.check_engine_ops(eng, DIST_SIZES, dev)
+        ntt = DR.check_ntt_dist(DIST_SIZES, dev)
+        print(f"dist ops: DistEngine ntt/intt/batch_inv/fold_round bit-exact against the "
+              f"single engine at {list(DIST_SIZES)}, collectives {json.dumps(ops)}; ntt_dist/"
+              f"intt_dist round trips {json.dumps(ntt)}", flush=True)
+
+        sig = DR.sign(eng, meta["config"], meta["document"], "zk-stark-fixture", dev)
+        require(bytes.fromhex(sig["proof"]) == (fixtures / "signature.bin").read_bytes(),
+                "the fixture signature through the distributed engine differs")
+        chain_fixture = DR.prove_chain(eng, chain_meta["config"], chain_meta["input"],
+                                       chain_meta["rng_tag"], dev)
+        require(bytes.fromhex(chain_fixture["proof"])
+                == (fixtures / "chain_proof.bin").read_bytes(),
+                "the chain fixture through the distributed engine differs")
+        print("dist fixtures: signature and chain fixture reproduced through the engine",
+              flush=True)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        def counted(fn):
+            """fn() with every kernel's launches, the collectives and the
+            replays counted from just before to just after."""
+            for k in kernels:
+                k.launches = 0
+            before, replays = collectives.counts(), segments.replays
+            out, ms = timed(fn)
+            issued = {k: v - before[k] for k, v in collectives.counts().items()}
+            return out, ms, {k.name: k.launches for k in kernels}, issued, \
+                segments.replays - replays
+
+        doc = b"attack at dawn"
+        rpsss = RPSSS(Field(), device=dev, rng=DetRng(b"chip-smoke-dist"))
+        sk, pk = rpsss.keygen()
+
+        def signer(engine):
+            """The sign of ``doc`` with ``engine``, from the same randomness
+            each time."""
+            def sign():
+                rpsss.stark._rng = DetRng(b"chip-smoke-dist-sign")
+                rpsss.stark.engine = rpsss.stark.fri.engine = engine
+                return rpsss.sign(sk, doc)
+            return sign
+
+        def warm_runs(fn, engine, runs):
+            """A cold call (the captures, or the engine's first tables),
+            then ``runs`` warm ones: the first warm one counted, the median
+            of their times."""
+            timed(fn(engine))
+            out, ms, launches, issued, replays = counted(fn(engine))
+            times = [ms] + [timed(fn(engine))[1] for _ in range(runs - 1)]
+            return out, statistics.median(times), times, launches, issued, replays
+
+        sign = {name: warm_runs(signer, engine, 3)
+                for name, engine in (("single", DEFAULT), ("dist", eng))}
+        sig, sign_launches, sign_issued, sign_replays = (
+            sign["dist"][0], *sign["dist"][3:])
+        require(len(sig) == MAIN_PROOF_BYTES, f"the distributed signature is {len(sig)} B")
+        require(sig == sign["single"][0],
+                "the distributed signature differs from the single engine's")
+        rpsss.stark.engine = rpsss.stark.fri.engine = DEFAULT
+        require(rpsss.verify(pk, doc, sig), "the distributed signature rejected")
+        # the four-step's fused-twiddle passes only at lengths that do not
+        # split over the ranks: none at world size 1
+        check_path_launches("distributed sign", sign_launches, SIGN_BATCH_INV_SIZES,
+                            may_skip=(N.NTT_TW_KERNEL.name,))
+        require(sign_replays == 0 and sign["single"][5] == 2,
+                f"a distributed sign replayed {sign_replays} segments, a single one "
+                f"{sign['single'][5]} (0 and 2 expected)")
+
+        model, stark = make_chain_stark(Field(), CHAIN_LENGTH, device=dev)
+        air = model.air(stark.omicron, stark.omicron_domain_length)
+        trace = model.trace(0x5EED)
+        boundary = model.boundary_constraints(trace[-1][0])
+
+        def prover(engine):
+            """The chain's prove with ``engine``, from the same randomness
+            each time."""
+            def prove():
+                stark._rng = DetRng(b"chip-smoke-dist-chain")
+                stark.engine = stark.fri.engine = engine
+                return stark.prove(trace, air, boundary, ProofStream(stark.field))
+            return prove
+
+        chain = {name: warm_runs(prover, engine, 3)
+                 for name, engine in (("single", DEFAULT), ("dist", eng))}
+        proof, chain_launches, chain_issued, chain_replays = (
+            chain["dist"][0], *chain["dist"][3:])
+        stark.engine = stark.fri.engine = DEFAULT
+        require(len(proof) == CHAIN_PROOF_BYTES, f"the distributed chain proof is {len(proof)} B")
+        require(proof == chain["single"][0],
+                "the distributed chain proof differs from the single engine's")
+        require(not rejects(stark, air, boundary, proof), "the distributed chain proof rejected")
+        check_path_launches("distributed chain prove", chain_launches, CHAIN_BATCH_INV_SIZES,
+                            may_skip=(N.NTT_TW_KERNEL.name,))
+        require(chain_replays == 0 and chain["single"][5] == 2,
+                f"a distributed chain prove replayed {chain_replays} segments, a single one "
+                f"{chain['single'][5]} (0 and 2 expected)")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    Stark._SEG_CACHE.clear()
+    FRI._LOWDEG_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = dict(world_size=1, backend="nccl", sizes=list(DIST_SIZES),
+                  sign_ms_single=sign["single"][1], sign_ms_dist=sign["dist"][1],
+                  sign_ms_runs_single=sign["single"][2], sign_ms_runs_dist=sign["dist"][2],
+                  chain_prove_ms_single=chain["single"][1], chain_prove_ms_dist=chain["dist"][1],
+                  chain_prove_ms_runs_single=chain["single"][2],
+                  chain_prove_ms_runs_dist=chain["dist"][2],
+                  single_sign_replays=sign["single"][5], single_chain_replays=chain["single"][5],
+                  sign_collectives=sign_issued, chain_collectives=chain_issued,
+                  sign_replays=sign_replays, chain_replays=chain_replays,
+                  sign_launches=sign_launches, chain_launches=chain_launches,
+                  proof_bytes=len(sig), chain_proof_bytes=len(proof))
+    print("dist: the default-config sign and the chain prove at 3200 through the distributed "
+          "engine equal the single engine's byte for byte and verify "
           + json.dumps(result), flush=True)
     return result
 
@@ -1710,6 +1871,7 @@ def main() -> int:
     chain_fixture_phase(dev)
     chain = chain_path(dev, chain_kernels)
     main["segments"] = segment_phase(dev)
+    dist_result = dist_phase(dev, chain_kernels)
     long_ntt = long_ntt_phase(dev, int_rate, logs)
     variants = probe_phase(dev)
     mm = montmul_chain_phase(dev, int_rate)
@@ -1754,6 +1916,8 @@ def main() -> int:
             "replaces": k.replaces,
             "launches": row["launches"],
             "launches_rpsss_sign": main["launches"].get(k.name, 0),
+            "launches_dist_sign": dist_result["sign_launches"].get(k.name, 0),
+            "launches_dist_chain_prove": dist_result["chain_launches"].get(k.name, 0),
             "max_abs_err": row["max_abs_err"],
             "bit_exact": row["max_abs_err"] == 0,
             "shape": row["shape"],
@@ -1766,8 +1930,8 @@ def main() -> int:
         }
         entry.update({key: v for key, v in row.items() if key not in entry and key != "kernel"})
         table.append(entry)
-    print(json.dumps({"main_path": main, "chain_path": chain, "card": card, "product": product,
-                      "build_s": build_s, "int32_ops_per_s": int_rate}))
+    print(json.dumps({"main_path": main, "chain_path": chain, "dist": dist_result, "card": card,
+                      "product": product, "build_s": build_s, "int32_ops_per_s": int_rate}))
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({

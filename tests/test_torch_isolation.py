@@ -27,6 +27,9 @@ from zk_stark_tpu_torch.carry import DetRng, rpsss_from_config
 import zk_stark_tpu_torch.ops.ntt_variants, zk_stark_tpu_torch.tools.ntt_variant_probe
 import zk_stark_tpu_torch.tools.kernel_shape_probe, zk_stark_tpu_torch.tools.kernel_times
 import zk_stark_tpu_torch.ops.limbs  # the limb kernels' wrappers (csrc/limbs.cu)
+import zk_stark_tpu_torch.parallel.collectives, zk_stark_tpu_torch.parallel.dryrun
+import zk_stark_tpu_torch.parallel.engine, zk_stark_tpu_torch.parallel.mesh
+import zk_stark_tpu_torch.parallel.multihost, zk_stark_tpu_torch.parallel.ntt_dist
 meta = json.load(open({meta!r}))
 rpsss = rpsss_from_config(meta["config"], device="cpu", rng=DetRng())
 sk, pk = rpsss.keygen()

@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's ``fri.py``: identical transcript bytes,
 index sampling and colinearity checks.  Each commit round is one fold (the
-fold kernel on the card) and one Merkle tree built on the device; only the
-root crosses to the host.  :meth:`FRI.prove` opens every round's queries
+fold kernel on the card, through the engine: ``parallel/engine.py``) and
+one Merkle tree built on the device; only the root crosses to the host.  :meth:`FRI.prove` opens every round's queries
 with one :func:`merkle.open_many`.  The verifier runs on the host except
 for the last-codeword check, whose iNTT, degree scan and re-evaluation run
 on the FRI's device as one segment (``segments.Segment``, the JAX
@@ -17,9 +17,9 @@ import torch
 from . import merkle, segments
 from .field import Field
 from .ops import limbs as L
-from .ops.fold import fold_round
 from .ops.ntt import MAX_KERNEL_N, intt_mont, ntt_mont, powers_mont
 from .ops.poly_ops import DPoly, degree_device
+from .parallel.engine import DEFAULT
 from .poly import Polynomial
 from .proof_stream import Codeword, Leafs, Path, ProofStream, Root
 from .utils.bits import bit_index
@@ -39,6 +39,7 @@ class FRI:
         expansion_factor: int,
         num_colinearity_tests: int,
         device="cuda",
+        engine=None,
     ):
         self.field = field
         self.offset = offset
@@ -47,6 +48,8 @@ class FRI:
         self.expansion_factor = expansion_factor
         self.num_colinearity_tests = num_colinearity_tests
         self.device = torch.device(device)
+        #: the prover's engine for the fold rounds; the verifier uses none
+        self.engine = engine if engine is not None else DEFAULT
         if self.device.type == "cuda" and domain_length > MAX_KERNEL_N ** 3:
             raise NotImplementedError(
                 f"FRI domain {domain_length} > {MAX_KERNEL_N ** 3} on the card is beyond "
@@ -132,7 +135,7 @@ class FRI:
             # a value of this proof: uploaded anew, never cached (int_to_mont)
             ao = L.ints_to_mont([alpha * pow(offset, -1, p) % p], self.device)[0]
             invpows = powers_mont(pow(omega, -1, p), n // 2, self.device)
-            cw, canon = fold_round(cw, invpows, ao, two_inv)
+            cw, canon = self.engine.fold_round(cw, invpows, ao, two_inv)
             omega = omega * omega % p
             offset = offset * offset % p
 

@@ -10,7 +10,9 @@ elements, with ``lo = cw[:n/2]`` and ``hi = cw[n/2:]``::
 On a CUDA tensor :func:`fold_round` launches ``csrc/fold.cu`` (persistent
 blocks over bulk-copied tiles of output elements; an operand that starts
 off the 16-byte grid is copied first and counted in ``limbs.copies``); on
-a CPU tensor it runs :func:`fold_plain`.
+a CPU tensor it runs :func:`fold_plain`.  :func:`fold_pairs` folds pairs
+given as separate lo and hi slices (a rank's share of the pairs under the
+distributed engine, ``parallel/engine.py``).
 """
 
 from __future__ import annotations
@@ -30,16 +32,21 @@ FOLD_KERNEL = _build.Kernel(
 )
 
 
-def fold_plain(cw, invpows, ao, two_inv):
-    """Tensor-code fold: (cw [n, 8], invpows [n/2, 8], ao [8], two_inv [8])
-    -> (folded [n/2, 8], canon [n/2, 8])."""
-    half = cw.shape[0] // 2
-    lo, hi = cw[:half], cw[half:]
+def fold_pairs_plain(lo, hi, invpows, ao, two_inv):
+    """Tensor-code fold of the pairs (lo[i], hi[i]): (lo, hi, invpows
+    [m, 8], ao [8], two_inv [8]) -> (folded [m, 8], canon [m, 8])."""
     f = L.mont_mul_plain(invpows, ao)
     s = L.add_mod_plain(lo, hi)
     d = L.sub_mod_plain(lo, hi)
     folded = L.mont_mul_plain(two_inv, L.add_mod_plain(s, L.mont_mul_plain(f, d)))
     return folded, L.redc_plain(folded)
+
+
+def fold_plain(cw, invpows, ao, two_inv):
+    """Tensor-code fold: (cw [n, 8], invpows [n/2, 8], ao [8], two_inv [8])
+    -> (folded [n/2, 8], canon [n/2, 8])."""
+    half = cw.shape[0] // 2
+    return fold_pairs_plain(cw[:half], cw[half:], invpows, ao, two_inv)
 
 
 def fold_kernel(cw, invpows, ao, two_inv):
@@ -78,3 +85,16 @@ def fold_round(cw, invpows, ao, two_inv):
         return fold_kernel(cw, invpows, ao, two_inv)
     _build.check_device(cw, "fold_round")
     return fold_plain(cw, invpows, ao, two_inv)
+
+
+def fold_pairs(lo, hi, invpows, ao, two_inv):
+    """The round on the pairs (lo[i], hi[i]) of two slices [m, 8], on
+    their device: the kernel on the card, which reads the pairs of one
+    codeword, so the two slices are laid end to end first (one copy); the
+    plain version on the CPU."""
+    if lo.shape != hi.shape:
+        raise ValueError(f"fold_pairs: lo {tuple(lo.shape)} and hi {tuple(hi.shape)} differ")
+    if lo.is_cuda:
+        return fold_kernel(torch.cat([lo, hi]), invpows, ao, two_inv)
+    _build.check_device(lo, "fold_pairs")
+    return fold_pairs_plain(lo, hi, invpows, ao, two_inv)

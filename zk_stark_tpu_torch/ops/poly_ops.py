@@ -13,7 +13,10 @@ structured "first k powers of omega" domains the prover uses:
 
 Results are exact field elements, so they agree with the JAX package
 coefficient for coefficient.  Every function runs on the device of its
-inputs; the NTTs go through the kernel on the card.
+inputs; the NTTs go through the kernel on the card.  The functions the
+prover calls take an ``engine`` (``parallel/engine.py``; the single-device
+``DEFAULT`` when None) for their transforms and inversions, as the JAX
+package's do.
 """
 
 from __future__ import annotations
@@ -163,24 +166,34 @@ def _halve_root(degree: int, root_int: int, order: int) -> tuple[int, int]:
     return root_int, order
 
 
-def fast_multiply(lhs: DPoly, rhs: DPoly, root_int: int, root_order: int) -> DPoly:
+def _engine(engine):
+    if engine is not None:
+        return engine
+    from ..parallel.engine import DEFAULT
+
+    return DEFAULT
+
+
+def fast_multiply(lhs: DPoly, rhs: DPoly, root_int: int, root_order: int,
+                  engine=None) -> DPoly:
     """NTT polynomial product."""
+    eng = _engine(engine)
     if lhs.is_zero() or rhs.is_zero():
         return DPoly.zero(lhs.device)
     degree = lhs.degree() + rhs.degree()
     root, order = _halve_root(degree, root_int, root_order)
     assert degree < order, "product degree exceeds available root order"
-    la = ntt_mont(lhs.truncated(lhs.degree() + 1).padded(order), root)
-    lb = ntt_mont(rhs.truncated(rhs.degree() + 1).padded(order), root)
-    coeffs = intt_mont(L.mont_mul(la, lb), root)
+    la = eng.ntt(lhs.truncated(lhs.degree() + 1).padded(order), root)
+    lb = eng.ntt(rhs.truncated(rhs.degree() + 1).padded(order), root)
+    coeffs = eng.intt(L.mont_mul(la, lb), root)
     return DPoly(coeffs, degree).truncated(degree + 1)
 
 
 def fast_coset_evaluate(
-    poly: DPoly, offset_int: int, root_int: int, order: int
+    poly: DPoly, offset_int: int, root_int: int, order: int, engine=None
 ) -> torch.Tensor:
     """Codeword [order, 8] of ``poly`` on the coset ``offset * root^i``."""
-    return ntt_mont(poly.scale(offset_int).padded(order), root_int)
+    return _engine(engine).ntt(poly.scale(offset_int).padded(order), root_int)
 
 
 def fast_coset_divide(
@@ -191,6 +204,7 @@ def fast_coset_divide(
     root_order: int,
     lhs_degree: Optional[int] = None,
     rhs_degree: Optional[int] = None,
+    engine=None,
 ) -> DPoly:
     """Division via coset NTT, truncated to ``deg(lhs) - deg(rhs) + 1``
     coefficients even when inexact (the prover's degree check relies on
@@ -210,9 +224,10 @@ def fast_coset_divide(
 
     lhs = lhs.truncated(lhs_degree + 1)
     rhs = rhs.truncated(rhs_degree + 1)
-    la = ntt_mont(lhs.scale(offset_int).padded(order), root)
-    lb = ntt_mont(rhs.scale(offset_int).padded(order), root)
-    coeffs = intt_mont(L.mont_mul(la, L.batch_inv(lb)), root)
+    eng = _engine(engine)
+    la = eng.ntt(lhs.scale(offset_int).padded(order), root)
+    lb = eng.ntt(rhs.scale(offset_int).padded(order), root)
+    coeffs = eng.intt(L.mont_mul(la, eng.batch_inv(lb)), root)
     return DPoly(coeffs).truncated(result_len).scale(pow(offset_int, -1, P))
 
 
@@ -269,20 +284,23 @@ def zerofier_first_k(root_int: int, n: int, k: int, device) -> DPoly:
     return DPoly(coeffs, k)
 
 
-def interpolate_first_k(root_int: int, n: int, k: int, values: torch.Tensor) -> DPoly:
+def interpolate_first_k(root_int: int, n: int, k: int, values: torch.Tensor,
+                        engine=None) -> DPoly:
     """The unique polynomial of degree < k through ``values`` at the first k
     powers of w (a primitive n-th root)."""
+    eng = _engine(engine)
     assert 0 < k <= n and values.shape[0] == k
     if k == n:
-        return DPoly(intt_mont(values, root_int))
+        return DPoly(eng.intt(values, root_int))
     if k == 1:
         return DPoly(values)
     device = str(values.device)
     zc, zvals = _zerofier_first_k(root_int, n, k, device)
+    zvals = eng.constrain(zvals)
 
     # Z'(w^i) for i < k: derivative coefficients, evaluated by NTT
     dz = L.mont_mul(zc[1:], _idx_mont(k, device))  # degree k-1, length k
-    dz_vals = ntt_mont(DPoly(dz).padded(n), root_int)[:k]
+    dz_vals = eng.ntt(DPoly(dz).padded(n), root_int)[:k]
 
     # u_i = v_i / Z'(w^i), weighted by w^-i for the convolution kernel
     u = L.mont_mul(values, L.batch_inv(dz_vals))
@@ -290,13 +308,11 @@ def interpolate_first_k(root_int: int, n: int, k: int, values: torch.Tensor) -> 
     a_full = DPoly(a).padded(n)
 
     # S_j = sum_i u_i / (w^j - w^i) as a cyclic convolution with h
-    s = intt_mont(
-        L.mont_mul(ntt_mont(a_full, root_int), _h_table_ntt(root_int, n, device)),
-        root_int,
-    )
+    h_ntt = eng.constrain(_h_table_ntt(root_int, n, device))
+    s = eng.intt(L.mont_mul(eng.ntt(a_full, root_int), h_ntt), root_int)
     ivals = L.mont_mul(zvals, s)
     ivals[:k] = values
-    return DPoly(intt_mont(ivals, root_int)).truncated(k)
+    return DPoly(eng.intt(ivals, root_int)).truncated(k)
 
 
 # -----------------------------------------------------------------------------

@@ -26,7 +26,10 @@ buffers, and each call runs the body eagerly on them and copies its
 results into the static outputs, so the CPU tests run the input plumbing,
 the output aliasing and the cache keys; only capture and replay are the
 card's.  There is no fallback: on the card a capture or a replay that
-fails raises, and no body runs eagerly in place of its graph.
+fails raises, and no body runs eagerly in place of its graph.  A segment
+made with ``capture=False`` runs eagerly on the card as on the CPU: the
+prover's segments under the distributed engine (``parallel/engine.py``),
+whose bodies issue collectives that are not captured.
 """
 
 from __future__ import annotations
@@ -75,10 +78,11 @@ class Segment:
     of tensors or lists of tensors.  Calls pass inputs of the first call's
     shapes and types, on any device (each is copied into its buffer)."""
 
-    def __init__(self, name: str, body: Callable, device):
+    def __init__(self, name: str, body: Callable, device, capture: bool = True):
         self.name = name
         self.body = body
         self.device = torch.device(device)
+        self.capture = capture
         self.inputs: list[torch.Tensor] | None = None
         self.outputs: list | None = None
         self._in_spec = self._out_spec = None
@@ -101,7 +105,7 @@ class Segment:
         for buf, t in zip(self.inputs, flat):
             buf.copy_(t)
         static_args = _unflatten(self.inputs, spec)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             self._run_eager(static_args)
         else:
             if self.graph is None:

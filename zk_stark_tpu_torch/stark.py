@@ -15,9 +15,18 @@ Transition polynomials come from evaluating the AIR pointwise on the FRI
 coset and interpolating back with one iNTT, which equals symbolic
 composition because the composition degree fits the coset.
 
+The prover's device work goes through its engine (``parallel/engine.py``,
+the JAX package's ``Stark(engine=...)``): the single-device ``DEFAULT``, or
+a ``DistEngine`` that splits the transforms, inversions, fold rounds and
+the combination over the ranks of a process group.  Every rank then runs
+``prove`` with the same arguments and returns the same bytes; under a
+DistEngine the segments run eagerly (not captured), and rank 0 alone
+draws the prover's random bytes and hands them to the others.
+
 The verifier reads the proof on the host; its combination check (the
 queried trace values, zerofiers and quotients, weighted and summed) runs
-on the device as one segment, its inputs in one upload.
+on the device as one segment, its inputs in one upload.  It uses no
+engine.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from .field import Field
 from .fri import FRI
 from .models.air import as_air
 from .ops import limbs as L
-from .ops.ntt import intt_mont, powers_mont
+from .ops.ntt import powers_mont
 from .ops.poly_ops import (
     DPoly,
     degree_device,
@@ -43,6 +52,7 @@ from .ops.poly_ops import (
     interpolate_first_k,
     zerofier_first_k,
 )
+from .parallel.engine import DEFAULT
 from .poly import MPolynomial, Polynomial
 from .proof_stream import Path, ProofStream, Root, Value
 from .utils.bits import bit_count
@@ -84,6 +94,7 @@ class Stark:
         transition_constraints_degree: int,
         rng: Callable[[int], bytes] = os.urandom,
         device="cuda",
+        engine=None,
     ):
         assert bit_count(field.order) >= security_level, (
             f"field order must be at least {security_level} bits"
@@ -104,6 +115,9 @@ class Stark:
         self.original_trace_length = num_cycles
         self.num_randomizers = 4 * num_collinearity_checks
         self._rng = rng
+        #: the prover's engine (parallel/engine.py); ``stark.engine`` and
+        #: ``stark.fri.engine`` may be set after construction
+        self.engine = engine if engine is not None else DEFAULT
 
         randomized_trace_length = num_cycles + self.num_randomizers
         # quirk kept: 1 << bit_count(v) is strictly greater than v even for
@@ -126,6 +140,7 @@ class Stark:
             expansion_factor,
             num_collinearity_checks,
             device=self.device,
+            engine=self.engine,
         )
 
     # -- degree bookkeeping --------------------------------------------------
@@ -213,16 +228,19 @@ class Stark:
             self.omicron_domain_length,
             self.fri.domain_length,
             str(self.device),
+            self.engine.cache_key,
         )
 
-    def _seg_cache_get(self, name: str, key: tuple, body) -> segments.Segment:
+    def _seg_cache_get(self, name: str, key: tuple, body,
+                       capture: bool = True) -> segments.Segment:
         """The segment ``name`` of this configuration and ``key``; ``body``
         (a function of tensors) is captured only on the first use of the
         key, so everything it closes over besides its inputs must be fixed
-        by the key."""
+        by the key.  With ``capture`` false it runs eagerly on the card
+        too."""
         return segments.cache_get(
             Stark._SEG_CACHE, (name, self._config_key()) + key,
-            lambda: segments.Segment(name, body, self.device),
+            lambda: segments.Segment(name, body, self.device, capture=capture),
         )
 
     # -- prover --------------------------------------------------------------
@@ -239,8 +257,10 @@ class Stark:
         orig_t = self.original_trace_length
         tdb = self.transition_degree_bounds(air)
         T = trace_cols.shape[1]
+        eng = self.engine
 
-        tps = [interpolate_first_k(omicron, odl, T, trace_cols[s]) for s in range(m)]
+        tps = [interpolate_first_k(omicron, odl, T, trace_cols[s], engine=eng)
+               for s in range(m)]
 
         bqs, bq_cws = [], []
         for s in range(m):
@@ -252,41 +272,40 @@ class Stark:
                 odl,
                 lhs_degree=T - 1,
                 rhs_degree=bz_arrs[s].shape[0] - 1,
+                engine=eng,
             )
             bqs.append(bq)
-            bq_cws.append(fast_coset_evaluate(bq, g, omega, fri_dl))
+            bq_cws.append(fast_coset_evaluate(bq, g, omega, fri_dl, engine=eng))
 
-        x_cw = powers_mont(omega, fri_dl, self.device, scale_int=g)
-        cur = [fast_coset_evaluate(tp, g, omega, fri_dl) for tp in tps]
-        nxt = [fast_coset_evaluate(tp.scale(omicron), g, omega, fri_dl) for tp in tps]
+        x_cw = eng.constrain(powers_mont(omega, fri_dl, self.device, scale_int=g))
+        cur = [fast_coset_evaluate(tp, g, omega, fri_dl, engine=eng) for tp in tps]
+        nxt = [fast_coset_evaluate(tp.scale(omicron), g, omega, fri_dl, engine=eng)
+               for tp in tps]
         point = [x_cw] + cur + nxt
 
         tz = self.transition_zerofier()
         g_inv = pow(g, -1, p)
         tqs, tq_degs = [], []
         for i, cw in enumerate(air.evaluate_codewords(point)):
-            tpoly = DPoly(intt_mont(cw, omega)).scale(g_inv)
+            tpoly = DPoly(eng.intt(cw, omega)).scale(g_inv)
             tq = fast_coset_divide(
                 tpoly, tz, g, omicron, odl,
-                lhs_degree=tdb[i], rhs_degree=orig_t - 1,
+                lhs_degree=tdb[i], rhs_degree=orig_t - 1, engine=eng,
             )
             tqs.append(tq)
             tq_degs.append(degree_device(tq.c))
 
-        rand_cw = fast_coset_evaluate(DPoly(rand_arr), g, omega, fri_dl)
+        rand_cw = fast_coset_evaluate(DPoly(rand_arr), g, omega, fri_dl, engine=eng)
         canons = L.from_mont(torch.stack(bq_cws + [rand_cw]))
         return canons, [tq.c for tq in tqs], [bq.c for bq in bqs], torch.stack(tq_degs)
 
     def _segment2(self, w: torch.Tensor, term_arrs, shifts) -> tuple[torch.Tensor]:
         """Weighted combination (weights ``w`` [W, 8]) of the shifted
         quotients and the randomizer, evaluated on the FRI coset."""
-        max_len = max(a.shape[0] + sh for a, sh in zip(term_arrs, shifts))
-        comb = torch.zeros((max_len, L.NLIMB), dtype=L.DTYPE, device=self.device)
-        for idx, arr in enumerate(term_arrs):
-            sh, ln = shifts[idx], arr.shape[0]
-            comb[sh : sh + ln] = L.add_mod(comb[sh : sh + ln], L.mont_mul(arr, w[idx]))
+        comb = self.engine.combine(w, term_arrs, shifts)
         return (fast_coset_evaluate(
-            DPoly(comb), self.generator, self.omega, self.fri.domain_length
+            DPoly(comb), self.generator, self.omega, self.fri.domain_length,
+            engine=self.engine,
         ),)
 
     def prove(
@@ -299,28 +318,31 @@ class Stark:
         ps = proof_stream if proof_stream is not None else ProofStream(self.field)
 
         with record_function("stark.host_inputs"):
+            # every random draw of the proof, in the reference's order: the
+            # trace randomizers, then the randomizer polynomial (one
+            # broadcast under a DistEngine)
+            m = self.num_registers
+            transition_constraints_degree = self.max_degree(transition_constraints)
+            draws = iter(self.engine.draw(
+                self._rng,
+                [17] * (self.num_randomizers * m + transition_constraints_degree + 1),
+                self.device,
+            ))
             # concatenate randomizers - induces zero knowledge
             trace = [list(row) for row in trace]
             for _ in range(self.num_randomizers):
-                trace.append(
-                    [
-                        self.field.sample(self._rng(17)).value
-                        for _ in range(self.num_registers)
-                    ]
-                )
+                trace.append([self.field.sample(next(draws)).value for _ in range(m)])
             randomized_trace_length = len(trace)
 
             boundary_interpolants = self.boundary_interpolants(boundary)
             boundary_zerofiers = self.boundary_zerofiers(boundary)
-            transition_constraints_degree = self.max_degree(transition_constraints)
             randomizer_ints = [
-                self.field.sample(self._rng(17)).value
+                self.field.sample(next(draws)).value
                 for _ in range(transition_constraints_degree + 1)
             ]
 
             # host tensors, each copied into its segment's buffer on the
             # device; the randomizer goes up once, since both segments read it
-            m = self.num_registers
             trace_cols = L.ints_to_mont(
                 [row[s] for s in range(m) for row in trace], "cpu"
             ).reshape(m, randomized_trace_length, L.NLIMB)
@@ -341,6 +363,7 @@ class Stark:
                 air.fingerprint(),
             ),
             lambda *args: self._segment1(air, *args),
+            capture=self.engine.captures_segments,
         )
         with record_function("stark.segment1"):
             canons, tq_stack, bq_stack, tq_degs = seg1(
@@ -382,6 +405,7 @@ class Stark:
             "seg2",
             (tuple(shifts), tuple(int(arrs[t].shape[0]) for t in terms)),
             lambda w, a: self._segment2(w, [a[t] for t in terms], shifts),
+            capture=self.engine.captures_segments,
         )
         with record_function("stark.segment2"):
             (combined,) = seg2(L.ints_to_mont(weights, "cpu"), arrs)
