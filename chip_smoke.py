@@ -129,6 +129,26 @@ runs (run_plain):
    x measured time per product; the instructions counted from field.cuh's
    product, mont_mul_ops, and the additions, over the issue rate); the
    kernel's registers and spills and its launch plan at each size;
+11. (run after 9, before 10) the arbitrary-domain toolkit and the Rescue
+   widths: (a) with every count reset just before and read just after,
+   evaluate_tree (ops/multipoint.py) at k = n = 4096 and 2^14 on random
+   domains against host Horner on 64 sampled points, the interpolate ->
+   evaluate round trip at full k, at 4096 the tree against evaluate_many
+   and fast_evaluate_domain, fast_zerofier at 4096 monic, of degree 4096
+   and zero on its domain (evaluate_many), fast_interpolate_domain at 2048
+   (its tree branch) against host Lagrange (Polynomial.interpolate_domain,
+   timed once); the launches of rows 1, 1b, X and I > 0 and of the leaf, node,
+   fold and three-pass kernels 0; then evaluate_tree, interpolate_tree and
+   evaluate_many at 4096 and 2^14 and interpolate_tree at 2048, each's
+   launches in one call, peak device memory and time (CUDA events,
+   median); (b) RescuePrime(m=3) and (m=4) hash_batch_device at 256, 2^14
+   and 2^20 as phase 9 runs m = 2, m = 5 to 8 at 256 and 2^14 (the kernel
+   bit for bit against permutation_plain at both), with each
+   instantiation's registers and spills; (c) the FFT tier (ops/fft.py): the golden vector by fft and dft,
+   and a 2^12-point random signal against numpy.fft within FFT_ATOL; (d) a
+   warm default-config sign under a StageTimer (its report) and one verify
+   inside device_trace (its Chrome trace holds the card's kernels); the
+   rescue row of the kernel table gains by_width;
 10. the numbers, the card line, the kernel table as one JSON line, and last
    the result line {"ok": true, "device": {...}}.
 
@@ -150,6 +170,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -161,6 +182,7 @@ from zk_stark_tpu_torch.carry import DetRng, chain_from_config, rpsss_from_confi
 from zk_stark_tpu_torch.field import Field  # noqa: E402
 from zk_stark_tpu_torch.fri import FRI  # noqa: E402
 from zk_stark_tpu_torch.merkle import MerkleTree  # noqa: E402
+from zk_stark_tpu_torch.poly import Polynomial  # noqa: E402
 from zk_stark_tpu_torch.models.rescue_chain import make_chain_stark  # noqa: E402
 from zk_stark_tpu_torch.models.rescue_prime import RescuePrime  # noqa: E402
 from zk_stark_tpu_torch.models.rpsss import RPSSS  # noqa: E402
@@ -168,9 +190,11 @@ from zk_stark_tpu_torch.proof_stream import ProofStream  # noqa: E402
 from zk_stark_tpu_torch.stark import Stark, VerificationError  # noqa: E402
 from zk_stark_tpu_torch.ops import _build  # noqa: E402
 from zk_stark_tpu_torch.ops import blake2b as B  # noqa: E402
+from zk_stark_tpu_torch.ops import fft as FFT  # noqa: E402
 from zk_stark_tpu_torch.ops import fold as FO  # noqa: E402
 from zk_stark_tpu_torch.ops import limbs as L  # noqa: E402
 from zk_stark_tpu_torch.ops import montmul_chain as MC  # noqa: E402
+from zk_stark_tpu_torch.ops import multipoint as M  # noqa: E402
 from zk_stark_tpu_torch.ops import ntt as N  # noqa: E402
 from zk_stark_tpu_torch.ops import ntt_variants as NV  # noqa: E402
 from zk_stark_tpu_torch.ops import poly_ops as PO  # noqa: E402
@@ -179,6 +203,7 @@ from zk_stark_tpu_torch.parallel import collectives, multihost  # noqa: E402
 from zk_stark_tpu_torch.parallel import dryrun as DR  # noqa: E402
 from zk_stark_tpu_torch.parallel.engine import DEFAULT, dist_engine  # noqa: E402
 from zk_stark_tpu_torch.tools import ntt_variant_probe  # noqa: E402
+from zk_stark_tpu_torch.utils.profiling import StageTimer, device_trace  # noqa: E402
 from zk_stark_tpu_torch.tools.measure import (  # noqa: E402
     ADD_SUB_OPS,
     HBM_BYTES_PER_S,
@@ -281,6 +306,29 @@ INV_PRODUCTS = 132 + 24
 #: most Python kernel calls a warm sign may make beside its segments'
 #: replays (the commitment and FRI trees, the folds, one REDC)
 MAX_SIGN_CALLS = 60
+#: phase 11's trees: the JAX package's evaluation threshold and four times
+#: it (TREE_INTERP_MIN, the interpolation threshold, is timed as well); the
+#: values of an evaluation held against host Horner; the order of the root
+#: handed to the toolkit (any above the domains)
+TREE_SIZES = (PO.TREE_EVAL_MIN, 1 << 14)
+TREE_SAMPLES = 64
+TOOLKIT_ROOT_ORDER = 1 << 20
+#: the Rescue state widths phase 11 adds to phase 9's m = 2 (capacity 1),
+#: at every RESCUE_SIZES; the kernel's other instantiations, held against
+#: the plain version at the first two sizes only
+RESCUE_WIDTHS = (3, 4)
+RESCUE_CHECK_WIDTHS = (5, 6, 7, 8)
+#: the FFT's golden vector (tests/test_fft.py), its random signal's length,
+#: and the tolerance against numpy.fft (complex64: float32 sums of 4096
+#: terms of unit size, against numpy's float64)
+FFT_SIGNAL = [1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0]
+FFT_GOLDEN = [(4.0, 0.0), (1.0, -2.414), (0.0, 0.0), (1.0, -0.414), (0.0, 0.0), (1.0, 0.414),
+              (0.0, 0.0), (1.0, 2.414)]
+FFT_N = 1 << 12
+FFT_ATOL = 1e-2
+#: the prover's stages under a StageTimer (the JAX package's names)
+PROVE_STAGES = {"host_inputs", "segment1", "commit_roots", "segment2", "fri_prove", "openings",
+                "serialize"}
 #: the device names of the kernels a proof launches (csrc/*.cu)
 PORT_KERNEL_NAMES = ("limbs_", "ntt_stages_kernel", "fold_kernel", "leaf_kernel", "node_kernel",
                      "batch_inv_")
@@ -1765,50 +1813,53 @@ def compress_phase(dev, int_rate: float) -> dict:
     return row
 
 
-def rescue_phase(dev, int_rate: float, ns_per_product: float, sass_per_product: float,
-                 logs: dict | None = None) -> dict:
-    """Phase 9: the batched Rescue-Prime hash at 256, 2^14 and 2^20."""
-    rp = RescuePrime(Field())
-    print(f"ptxas {ptxas_line(logs or {}, 'rescue')}", flush=True)
-    gen = torch.Generator().manual_seed(44)
+def rescue_width(dev, rp: RescuePrime, int_rate: float, ns_per_product: float,
+                 sass_per_product: float, gen: torch.Generator,
+                 sizes: tuple = RESCUE_SIZES) -> dict:
+    """``rp``'s batched hash at ``sizes`` (RESCUE_SIZES or its first two):
+    256 (entry()'s inputs) and random inputs, launches counted; the kernel
+    bit for bit against the plain version at the sizes below 2^20, the host
+    hash on all 256 and on 68 sampled inputs at the largest; times and
+    ceilings."""
+    name = "rescue" if rp.m == 2 else f"rescue m={rp.m}"
     inputs = {256: L.ints_to_mont(range(256), dev)}
-    for n in RESCUE_SIZES[1:]:
+    for n in sizes[1:]:
         inputs[n] = random_mont(n, gen, dev)
 
     R.RESCUE_KERNEL.launches = 0
     outs = {n: rp.hash_batch_device(x) for n, x in inputs.items()}
     torch.cuda.synchronize()
     launches = R.RESCUE_KERNEL.launches
-    require(launches == len(RESCUE_SIZES),
-            f"rescue_kernel: {launches} launches for {len(RESCUE_SIZES)} hash_batch_device calls")
+    require(launches == len(sizes),
+            f"{name}: {launches} launches for {len(sizes)} hash_batch_device calls")
 
     require([int(v) for v in L.mont_to_ints(outs[256])] == [rp.hash(x) for x in range(256)],
-            "hash_batch_device(range(256)) differs from the host hash")
-    big = RESCUE_SIZES[-1]
+            f"{name}: hash_batch_device(range(256)) differs from the host hash")
+    big = sizes[-1]
     idx = torch.cat([torch.arange(4), torch.randint(4, big, (64,), generator=gen)]).to(dev)
     xs = L.mont_to_ints(inputs[big][idx])
     ys = L.mont_to_ints(outs[big][idx])
     require([int(y) for y in ys] == [rp.hash(int(x)) for x in xs],
-            f"hash_batch_device at {big} differs from the host hash on the samples")
-    require(rp.hash_batch([1], device=dev) == [RESCUE_HASH_1], "hash(1) differs from the vector")
+            f"{name}: hash_batch_device at {big} differs from the host hash on the samples")
 
     mds, rc = rp._device_constants(dev)
     per_hash, adds_per_hash = permutation_counts(rp.m, rp.N, rp.alpha, rp.alpha_inv)
     ops_per_hash = per_hash * MONT_MUL_OPS + adds_per_hash * ADD_SUB_OPS
     row = dict(kernel=R.RESCUE_KERNEL, source="zk_stark_tpu_torch/csrc/rescue.cu",
-               launches=launches, launches_per_hash_batch=launches / len(RESCUE_SIZES),
+               launches=launches, launches_per_hash_batch=launches / len(sizes),
                max_abs_err=0, products_per_hash=per_hash, adds_per_hash=adds_per_hash,
                ops_per_hash=ops_per_hash, by_size={})
     for n, x in inputs.items():
         size = {}
         if n < RESCUE_SIZES[-1]:
-            state = torch.cat([x.unsqueeze(1), torch.zeros_like(x).unsqueeze(1)], dim=1)
+            zeros = torch.zeros((n, rp.m - rp.capacity, L.NLIMB), dtype=L.DTYPE, device=dev)
+            state = torch.cat([x.unsqueeze(1), zeros], dim=1)
             plain, size["plain_ms"] = timed_once(
                 lambda: run_plain(R.permutation_plain, state, mds, rc, rp.N, rp.alpha,
                                   rp.alpha_inv))
             got = R.permutation_kernel(state, mds, rc, rp.N, rp.alpha, rp.alpha_inv)
-            row["max_abs_err"] = max(row["max_abs_err"], check(f"rescue n={n}", got, plain))
-            require(torch.equal(got[:, 0], outs[n]), f"rescue n={n}: hash_batch_device differs")
+            row["max_abs_err"] = max(row["max_abs_err"], check(f"{name} n={n}", got, plain))
+            require(torch.equal(got[:, 0], outs[n]), f"{name} n={n}: hash_batch_device differs")
         reps, runs = (20, 5) if n < RESCUE_SIZES[-1] else (3, 3)
         size["ms"] = time_ms(lambda: rp.hash_batch_device(x), reps=reps, runs=runs)
         products = n * per_hash
@@ -1819,14 +1870,25 @@ def rescue_phase(dev, int_rate: float, ns_per_product: float, sass_per_product: 
         size["bound_ms"], size["bound_by"] = max(
             (2 * n * rp.m * 64 / HBM_BYTES_PER_S * 1e3, "bytes"),
             (size["ceiling_issue_ms"], "operations"))
-        size["plan"] = R.launch_plan(n)
+        size["plan"] = R.launch_plan(n, rp.m)
         row["by_size"][f"n={n}"] = size
         plain_txt = f"{size['plain_ms']:.1f} ms" if "plain_ms" in size else "not timed"
-        print(f"rescue n={n}: kernel {size['ms']:.4f} ms ({size['hashes_per_s']:.4e} hashes/s), "
+        print(f"{name} n={n}: kernel {size['ms']:.4f} ms ({size['hashes_per_s']:.4e} hashes/s), "
               f"plain {plain_txt}, ceilings: measured-rate "
               f"{size['ceiling_measured_ms']:.4f} ms, issue-rate {size['ceiling_issue_ms']:.4f} ms "
               f"({products:.4e} products; at the compiled SASS count "
               f"{size['ceiling_sass_ms']:.4f} ms); launch: {size['plan']}", flush=True)
+    return row
+
+
+def rescue_phase(dev, int_rate: float, ns_per_product: float, sass_per_product: float,
+                 logs: dict | None = None) -> dict:
+    """Phase 9: the batched Rescue-Prime hash at 256, 2^14 and 2^20."""
+    rp = RescuePrime(Field())
+    print(f"ptxas {ptxas_line(logs or {}, 'rescue')}", flush=True)
+    row = rescue_width(dev, rp, int_rate, ns_per_product, sass_per_product,
+                       torch.Generator().manual_seed(44))
+    require(rp.hash_batch([1], device=dev) == [RESCUE_HASH_1], "hash(1) differs from the vector")
     # the headline is the largest size the plain version is timed at (at
     # 2^20 it would take minutes: ~4,700 tensor-code products of ~75 launches
     # on [2^20, 2, 8])
@@ -1836,6 +1898,218 @@ def rescue_phase(dev, int_rate: float, ns_per_product: float, sass_per_product: 
     print("rescue batch " + json.dumps({k: v for k, v in row.items() if k != "kernel"}),
           flush=True)
     return row
+
+
+def ints(t: torch.Tensor) -> list[int]:
+    """Montgomery limbs on any device -> canonical Python ints."""
+    return [int(v) for v in L.mont_to_ints(t)]
+
+
+def toolkit_checks(dev, gen: torch.Generator) -> dict:
+    """Phase 11a's path: the subproduct trees and the arbitrary-domain
+    toolkit at the JAX package's thresholds, exact against host references;
+    returns what the timings reuse."""
+    field = Field()
+    root = field.primitive_nth_root(TOOLKIT_ROOT_ORDER).value
+    data = {}
+    for k in TREE_SIZES:
+        domain, coeffs, values = (random_mont(k, gen, dev) for _ in range(3))
+        got = M.evaluate_tree(coeffs, domain)
+        idx = torch.cat([torch.tensor([0, k - 1]),
+                         torch.randint(1, k - 1, (TREE_SAMPLES - 2,), generator=gen)]).to(dev)
+        poly = Polynomial(field, ints(coeffs))
+        require(ints(got[idx]) == [poly.evaluate(x) for x in ints(domain[idx])],
+                f"evaluate_tree k=n={k}: differs from host Horner on the samples")
+        interp = M.interpolate_tree(domain, values)
+        require(torch.equal(M.evaluate_tree(interp, domain), values),
+                f"interpolate_tree k={k}: evaluating its coefficients misses the values")
+        if k == PO.TREE_EVAL_MIN:
+            require(torch.equal(PO.fast_evaluate_domain(PO.DPoly(coeffs), domain), got),
+                    f"fast_evaluate_domain k=n={k} (the tree branch) differs from evaluate_tree")
+            require(torch.equal(PO.evaluate_many(coeffs, domain), got),
+                    f"evaluate_many k=n={k} differs from evaluate_tree")
+        data[k] = (domain, coeffs, values)
+
+    # the zerofier of 4096 points: monic, of degree k, zero on every point
+    domain = data[PO.TREE_EVAL_MIN][0]
+    z = PO.fast_zerofier(domain, root, TOOLKIT_ROOT_ORDER)
+    require(int(PO.degree_device(z.c)) == domain.shape[0] == z.degree(),
+            "fast_zerofier: wrong degree")
+    require(torch.equal(z.c[-1], L.one_mont(dev)), "fast_zerofier: not monic")
+    require(not PO.evaluate_many(z.c, domain).any(), "fast_zerofier: nonzero on its domain")
+
+    # the interpolation threshold's tree branch against host Lagrange
+    k = PO.TREE_INTERP_MIN
+    dom_ints, val_ints = ints(random_mont(k, gen, dev)), ints(random_mont(k, gen, dev))
+    got = PO.fast_interpolate_domain(None, dom_ints, val_ints, root, TOOLKIT_ROOT_ORDER, device=dev)
+    t0 = time.perf_counter()
+    want = Polynomial.interpolate_domain(Field(), dom_ints, val_ints).coeffs
+    data["lagrange_ms"] = (time.perf_counter() - t0) * 1e3
+    require(got.to_ints() == want,
+            f"fast_interpolate_domain k={k} (the tree branch) differs from host Lagrange")
+    data[k] = (L.ints_to_mont(dom_ints, dev), L.ints_to_mont(val_ints, dev))
+    return data
+
+
+def peak_gb(fn) -> float:
+    """Peak device memory one call of ``fn`` adds to what the process holds
+    already, GB."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - held) / 1e9
+
+
+def call_launches(fn, kernels) -> dict:
+    """Launches of ``kernels`` in one call of ``fn`` (those above 0)."""
+    before = [k.launches for k in kernels]
+    fn()
+    torch.cuda.synchronize()
+    return {k.name: k.launches - c for k, c in zip(kernels, before) if k.launches != c}
+
+
+def toolkit_phase(dev) -> dict:
+    """Phase 11a: the trees and the toolkit (ops/multipoint.py,
+    ops/poly_ops.py) checked with every count reset just before and read
+    just after; then each branch timed at the thresholds and at 2^14."""
+    path_kernels = [N.NTT_KERNEL, N.NTT_TW_KERNEL, *L.KERNELS]
+    other = [B.LEAF_KERNEL, B.NODE_KERNEL, FO.FOLD_KERNEL, N.NTT_LONG_TW_KERNEL, N.NTT_LONG_KERNEL]
+    for k in _build.Kernel.instances:
+        k.launches = 0
+    t0 = time.perf_counter()
+    data = toolkit_checks(dev, torch.Generator().manual_seed(46))
+    torch.cuda.synchronize()
+    checks_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in _build.Kernel.instances if k.launches}
+    for k in (N.NTT_KERNEL, N.NTT_TW_KERNEL, L.MONT_MUL_KERNEL, L.ADD_MOD_KERNEL,
+              L.SUB_MOD_KERNEL, L.BATCH_INV_KERNEL):
+        require(launches.get(k.name, 0) > 0, f"toolkit: kernel {k.name} was not launched")
+    for k in other:
+        require(k.launches == 0, f"toolkit: kernel {k.name} launched {k.launches} times")
+    print(f"toolkit checks: evaluate_tree at k=n={TREE_SIZES} equals host Horner on "
+          f"{TREE_SAMPLES} samples, the interpolate -> evaluate round trip returns the values, "
+          f"at {PO.TREE_EVAL_MIN} the tree equals evaluate_many and fast_evaluate_domain; "
+          f"fast_zerofier({PO.TREE_EVAL_MIN}) monic, degree {PO.TREE_EVAL_MIN}, zero on its "
+          f"domain; fast_interpolate_domain({PO.TREE_INTERP_MIN}) (tree branch) equals host "
+          f"Lagrange; {checks_s:.1f} s; launches {json.dumps(launches)}", flush=True)
+
+    timed = {}
+    for k in TREE_SIZES:
+        domain, coeffs, values = data[k]
+        interp = M.interpolate_tree(domain, values)
+        entry = {}
+        for name, fn in (("evaluate_tree", lambda: M.evaluate_tree(coeffs, domain)),
+                         ("interpolate_tree", lambda: M.interpolate_tree(domain, values)),
+                         ("evaluate_many", lambda: PO.evaluate_many(coeffs, domain))):
+            torch.cuda.empty_cache()
+            entry[f"{name}_launches"] = call_launches(fn, path_kernels)
+            entry[f"{name}_peak_gb"] = peak_gb(fn)
+            entry[f"{name}_ms"] = time_ms(fn, reps=1 if name == "evaluate_many" else 3, runs=3)
+        require(torch.equal(M.evaluate_tree(interp, domain), values), f"k={k}: round trip")
+        timed[f"k=n={k}"] = entry
+        print(f"toolkit k=n={k}: " + json.dumps(entry), flush=True)
+    domain, values = data[PO.TREE_INTERP_MIN]
+    fn = lambda: M.interpolate_tree(domain, values)  # noqa: E731
+    timed[f"k={PO.TREE_INTERP_MIN}"] = {
+        "interpolate_tree_ms": time_ms(fn, reps=3, runs=3),
+        "interpolate_tree_launches": call_launches(fn, path_kernels),
+        "interpolate_tree_peak_gb": peak_gb(fn),
+        "lagrange_host_ms": data["lagrange_ms"],
+    }
+    print(f"toolkit k={PO.TREE_INTERP_MIN}: " + json.dumps(timed[f"k={PO.TREE_INTERP_MIN}"]),
+          flush=True)
+    return {"launches": launches, "checks_s": checks_s, "timed": timed}
+
+
+def ptxas_by_width(logs: dict) -> dict:
+    """Registers and spill bytes of each rescue_kernel<m> instantiation, from
+    ptxas's -v output."""
+    out, m = {}, None
+    for line in logs.get("rescue", "").splitlines():
+        found = re.search(r"Compiling entry function '\w*rescue_kernelILi(\d+)E", line)
+        if found:
+            m = int(found.group(1))
+            out[f"m={m}"] = {}
+        elif m is not None and "spill stores" in line:
+            out[f"m={m}"]["spill_bytes"] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+        elif m is not None and "Used" in line and "registers" in line:
+            out[f"m={m}"]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            m = None
+    return out
+
+
+def rescue_widths_phase(dev, int_rate: float, rescue: dict, mm: dict, logs: dict) -> dict:
+    """Phase 11b: the batched hash at the state widths 3 and 4 (capacity 1),
+    as phase 9 runs m = 2, and at 5 to 8 at 256 and 2^14."""
+    widths = ptxas_by_width(logs)
+    print(f"rescue instantiations (ptxas): {json.dumps(widths)}", flush=True)
+    by_width = {"m=2": rescue["by_size"]}
+    for m in RESCUE_WIDTHS + RESCUE_CHECK_WIDTHS:
+        sizes = RESCUE_SIZES if m in RESCUE_WIDTHS else RESCUE_SIZES[:2]
+        row = rescue_width(dev, RescuePrime(Field(), m=m), int_rate, mm["ns_per_product"],
+                           mm["sass_ops_per_product"], torch.Generator().manual_seed(47 + m),
+                           sizes)
+        by_width[f"m={m}"] = dict(row["by_size"], launches=row["launches"],
+                                  max_abs_err=row["max_abs_err"],
+                                  products_per_hash=row["products_per_hash"])
+        rescue["max_abs_err"] = max(rescue["max_abs_err"], row["max_abs_err"])
+    return {"by_width": by_width, "ptxas": widths}
+
+
+def fft_phase(dev) -> dict:
+    """Phase 11c: the complex FFT tier (ops/fft.py) on the card: the golden
+    vector, and a random 2^12-point signal against numpy.fft within
+    FFT_ATOL."""
+    for fn in (FFT.fft, FFT.dft):
+        freqs = fn(FFT_SIGNAL, device=dev)
+        got = [(round(float(f.real), 3) + 0.0, round(float(f.imag), 3) + 0.0) for f in freqs]
+        require(got == FFT_GOLDEN, f"{fn.__name__}: the golden vector differs: {got}")
+    x = np.random.default_rng(48).standard_normal(FFT_N).astype(np.float32)
+    want = np.fft.fft(x)
+    row = {}
+    for fn in (FFT.fft, FFT.dft):
+        err = float(np.abs(fn(x, device=dev) - want).max())
+        require(err <= FFT_ATOL, f"{fn.__name__} n={FFT_N}: max abs error {err} > {FFT_ATOL}")
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x, device=dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        row[fn.__name__] = {"max_abs_err": err, "host_ms": statistics.median(times)}
+    print(f"fft: the golden vector (fft, dft); n={FFT_N} against numpy.fft.fft within "
+          f"{FFT_ATOL}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def profiling_phase(dev, signer) -> dict:
+    """Phase 11d: a warm default-config sign under a StageTimer (its
+    report), then one verify inside device_trace (its Chrome trace)."""
+    rpsss, sk, pk, doc = signer
+    rpsss.sign(sk, doc)  # warm: phase 7a cleared the segment caches
+    timer = StageTimer(dev)
+    rpsss.stark.timer = timer
+    try:
+        sig = rpsss.sign(sk, doc)
+    finally:
+        rpsss.stark.timer = None
+    require(set(timer.totals) == PROVE_STAGES, f"stage timer: stages {sorted(timer.totals)}")
+    print("stage timer, warm default-config sign:\n" + timer.report(), flush=True)
+    with tempfile.TemporaryDirectory() as logdir:
+        with device_trace(logdir):
+            ok = rpsss.verify(pk, doc, sig)
+        (trace,) = pathlib.Path(logdir).glob("trace_*.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        size = trace.stat().st_size
+    require(ok, "the timed signature was rejected")
+    require(kernels > 0, "device_trace: no kernel in the trace of a verify")
+    print(f"device_trace: one verify, {size} B, {len(events)} events, {kernels} kernels",
+          flush=True)
+    return {"stages_ms": {k: v * 1e3 for k, v in timer.totals.items()}, "trace_bytes": size,
+            "trace_kernels": kernels}
 
 
 def main() -> int:
@@ -1877,6 +2151,10 @@ def main() -> int:
     mm = montmul_chain_phase(dev, int_rate)
     comp = compress_phase(dev, int_rate)
     rescue = rescue_phase(dev, int_rate, mm["ns_per_product"], mm["sass_ops_per_product"], logs)
+    toolkit = toolkit_phase(dev)
+    rescue.update(rescue_widths_phase(dev, int_rate, rescue, mm, logs))
+    fft_row = fft_phase(dev)
+    prof = profiling_phase(dev, signer)
     # the leaf and node rows beside the measured compression rate (a tree
     # of n leaves is n - 1 compressions)
     for name in ("leaf", "node"):
@@ -1918,6 +2196,7 @@ def main() -> int:
             "launches_rpsss_sign": main["launches"].get(k.name, 0),
             "launches_dist_sign": dist_result["sign_launches"].get(k.name, 0),
             "launches_dist_chain_prove": dist_result["chain_launches"].get(k.name, 0),
+            "launches_toolkit": toolkit["launches"].get(k.name, 0),
             "max_abs_err": row["max_abs_err"],
             "bit_exact": row["max_abs_err"] == 0,
             "shape": row["shape"],
@@ -1931,7 +2210,8 @@ def main() -> int:
         entry.update({key: v for key, v in row.items() if key not in entry and key != "kernel"})
         table.append(entry)
     print(json.dumps({"main_path": main, "chain_path": chain, "dist": dist_result, "card": card,
-                      "product": product, "build_s": build_s, "int32_ops_per_s": int_rate}))
+                      "product": product, "build_s": build_s, "int32_ops_per_s": int_rate,
+                      "toolkit": toolkit, "fft": fft_row, "profiling": prof}))
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({

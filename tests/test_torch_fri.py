@@ -155,3 +155,35 @@ def test_cuda_fri_refuses_domains_beyond_the_kernel():
     FRI(F, 1, F.primitive_nth_root(1 << 25).value, 1 << 25, 4, 2, device="cuda")
     with pytest.raises(NotImplementedError, match="recursive split"):
         FRI(F, 1, F.primitive_nth_root(1 << 37).value, 1 << 37, 4, 2, device="cuda")
+
+
+def test_query_pushes_what_prove_pushes():
+    """FRI.query on the fixture configuration's first round (FRI 512, two
+    checks) pushes the items that prove pushed for that round, after the
+    same commitment."""
+    fri = _fri()
+    cw = _codeword(fri, fri.domain_length // 4 - 1, seed=5)
+    proved = ProofStream(F)
+    top = fri.prove(cw, proved)
+    queried = ProofStream(F)
+    trees = fri.commit(cw, queried)
+    n_commit = len(queried.items)
+    assert queried.items == proved.items[:n_commit]
+    half = trees[0].n // 2
+    indices_c = [i % half for i in top]
+    assert fri.query(trees[0], trees[1], indices_c, queried) == (
+        indices_c + [i + half for i in indices_c])
+    k = fri.num_colinearity_tests
+    assert len(queried.items) == n_commit + 4 * k
+    assert queried.items[n_commit:] == proved.items[n_commit : n_commit + 4 * k]
+
+
+def test_evaluate_domain_matches_jax():
+    from zk_stark_tpu.field import Field as JField
+    from zk_stark_tpu.fri import FRI as JFRI
+
+    fri = _fri(64)
+    jfri = JFRI(JField(), fri.offset, fri.omega, 64, 4, 2)
+    got = fri.evaluate_domain()
+    assert got == jfri.evaluate_domain()
+    assert got == [fri.offset * pow(fri.omega, i, P) % P for i in range(64)]

@@ -30,6 +30,8 @@ import zk_stark_tpu_torch.ops.limbs  # the limb kernels' wrappers (csrc/limbs.cu
 import zk_stark_tpu_torch.parallel.collectives, zk_stark_tpu_torch.parallel.dryrun
 import zk_stark_tpu_torch.parallel.engine, zk_stark_tpu_torch.parallel.mesh
 import zk_stark_tpu_torch.parallel.multihost, zk_stark_tpu_torch.parallel.ntt_dist
+import zk_stark_tpu_torch.ops.multipoint, zk_stark_tpu_torch.ops.fft
+import zk_stark_tpu_torch.utils.profiling
 meta = json.load(open({meta!r}))
 rpsss = rpsss_from_config(meta["config"], device="cpu", rng=DetRng())
 sk, pk = rpsss.keygen()

@@ -190,16 +190,29 @@ extern "C" void host_compress(const int64_t* mh, const int64_t* ml, const int64_
   grid(n);
   for (int i = 0; i < n; ++i) { blockIdx.x = i; compress_kernel(mh, ml, t, oh, ol, n); }
 }
+// blocks of `threads` threads (a multiple of the width m), m threads a state
+template <int M>
+static void rescue_blocks(const int64_t* st, int64_t* out, const int64_t* mds, const int64_t* rc,
+                          int n, int rounds, const Chain& alpha, const Chain& alpha_inv,
+                          int threads) {
+  grid(n);
+  for (int b = 0; b * threads < M * n; ++b) {
+    blockIdx.x = b;
+    run_block(threads, [&] { rescue_kernel<M>(st, out, mds, rc, n, rounds, alpha, alpha_inv); });
+  }
+}
 extern "C" void host_rescue(const int64_t* st, int64_t* out, const int64_t* mds,
-                            const int64_t* rc, int n, int rounds, const uint32_t* a, int a_len,
-                            const uint32_t* ai, int ai_len, int threads) {
+                            const int64_t* rc, int n, int m, int rounds, const uint32_t* a,
+                            int a_len, const uint32_t* ai, int ai_len, int threads) {
   Chain alpha{a_len, {}}, alpha_inv{ai_len, {}};
   for (int k = 0; k < a_len; ++k) alpha.step[k] = a[k];
   for (int k = 0; k < ai_len; ++k) alpha_inv.step[k] = ai[k];
-  grid(n);
-  for (int b = 0; b * threads < 2 * n; ++b) {
-    blockIdx.x = b;
-    run_block(threads, [&] { rescue_kernel(st, out, mds, rc, n, rounds, alpha, alpha_inv); });
+  switch (m) {
+    case 2: rescue_blocks<2>(st, out, mds, rc, n, rounds, alpha, alpha_inv, threads); break;
+    case 3: rescue_blocks<3>(st, out, mds, rc, n, rounds, alpha, alpha_inv, threads); break;
+    case 4: rescue_blocks<4>(st, out, mds, rc, n, rounds, alpha, alpha_inv, threads); break;
+    case 7: rescue_blocks<7>(st, out, mds, rc, n, rounds, alpha, alpha_inv, threads); break;
+    case 8: rescue_blocks<8>(st, out, mds, rc, n, rounds, alpha, alpha_inv, threads); break;
   }
 }
 extern "C" void host_chain(const int64_t* x, int64_t* y, int n, int k) {
@@ -275,7 +288,7 @@ def lib(tmp_path_factory):
     lib.host_variant.argtypes = [ctypes.c_char] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.host_compress.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
     words = ctypes.POINTER(ctypes.c_uint32)
-    lib.host_rescue.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    lib.host_rescue.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                                 + [words, ctypes.c_int, words, ctypes.c_int, ctypes.c_int])
     lib.host_mont_mul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.host_chain.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
@@ -756,28 +769,36 @@ def test_montmul_chain_kernel_source(lib, k):
 
 
 @pytest.mark.parametrize(
-    "alpha, alpha_inv, rounds, n, threads",
-    [(None, None, 27, 4, 2), (0, 77, 2, 4, 2), (5, (1 << 9) + 3, 2, 4, 2), (None, None, 2, 1, 2),
-     (None, None, 2, 7, 4), (None, None, 3, 5, 6)],
+    "alpha, alpha_inv, rounds, n, threads, m",
+    [(None, None, 27, 4, 2, 2), (0, 77, 2, 4, 2, 2), (5, (1 << 9) + 3, 2, 4, 2, 2),
+     (None, None, 2, 1, 2, 2), (None, None, 2, 7, 4, 2), (None, None, 3, 5, 6, 2),
+     (None, None, 2, 50, 126, 3), (None, None, 2, 40, 128, 4), (None, None, 2, 20, 126, 7),
+     (None, None, 2, 5, 16, 8)],
     ids=["default-27-rounds", "alpha0-short-inverse", "9-bit-inverse", "one-state",
-         "ragged-block-of-4", "ragged-block-of-6"],
+         "ragged-block-of-4", "ragged-block-of-6", "m3-blocks-of-126", "m4-blocks-of-128",
+         "m7-blocks-of-126", "m8-ragged"],
 )
-def test_rescue_kernel_source(lib, alpha, alpha_inv, rounds, n, threads):
-    """n random full states through the rounds, two threads a state: the
-    default instance's exponents over all 27, exponents that reach the
-    chains' other forms (alpha = 0, an inverse exponent of 7 and of 10
-    bits), a single state, and 7 and 5 states in blocks of 4 and 6 threads
-    (the last block half idle: its spare threads meet every barrier and
-    store nothing)."""
-    rp = RescuePrime(F)
+def test_rescue_kernel_source(lib, alpha, alpha_inv, rounds, n, threads, m):
+    """n random full states of width m through the rounds, m threads a
+    state: the default instance's exponents over all 27, exponents that
+    reach the chains' other forms (alpha = 0, an inverse exponent of 7 and
+    of 10 bits), a single state, and 7 and 5 states in blocks of 4 and 6
+    threads (the last block half idle: its spare threads meet every barrier
+    and store nothing); at m = 3 and 4 the blocks launch_plan gives (126
+    and 128 threads; 50 and 40 states leave the last block partly full),
+    m = 7 in blocks of 126 (20 states, the second block partly full) and
+    m = 8."""
+    rp = RescuePrime(F, m=m)
     alpha = rp.alpha if alpha is None else alpha
     alpha_inv = rp.alpha_inv if alpha_inv is None else alpha_inv
     mds, rc = rp._device_constants("cpu")
-    state = _rand_mont(7, 2 * n).reshape(n, 2, L.NLIMB)
+    state = _rand_mont(7, m * n).reshape(n, m, L.NLIMB)
     out = torch.full_like(state, -1)
     a_steps, a_len = R._steps(alpha)
     ai_steps, ai_len = R._steps(alpha_inv)
-    lib.host_rescue(*_ptrs(state, out, mds, rc), n, rounds, a_steps, a_len, ai_steps, ai_len,
+    if m in (3, 4, 7) and threads > 100:
+        assert R.launch_plan(n, m) == {"blocks": 2, "threads": threads}
+    lib.host_rescue(*_ptrs(state, out, mds, rc), n, m, rounds, a_steps, a_len, ai_steps, ai_len,
                     threads)
     assert torch.equal(out, R.permutation_plain(state, mds, rc, rounds, alpha, alpha_inv))
 

@@ -385,3 +385,16 @@ def test_plain_versions_reach_no_dispatching_name(monkeypatch, operands):
     finally:
         N._powers_dev.cache_clear()
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_eq_row_to_int_and_canonical_np_match_jax():
+    """limbs.eq, mont_to_canonical_np and row_to_int on 0, 1, p-1, p-2,
+    against the JAX package's."""
+    a, b = EDGES + EDGES, EDGES + EDGES[::-1]
+    got = L.eq(L.ints_to_mont(a, "cpu"), L.ints_to_mont(b, "cpu"))
+    want = np.asarray(JL.eq(JL.ints_to_mont(a), JL.ints_to_mont(b)))
+    assert got.tolist() == want.tolist() == [x == y for x, y in zip(a, b)]
+    canon = L.mont_to_canonical_np(L.ints_to_mont(EDGES, "cpu"))
+    jcanon = JL.mont_to_canonical_np(JL.ints_to_mont(EDGES))
+    assert canon.dtype == np.uint32 and np.array_equal(canon, jcanon)
+    assert [L.row_to_int(r) for r in canon] == [JL.row_to_int(r) for r in jcanon] == EDGES

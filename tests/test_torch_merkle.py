@@ -127,3 +127,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         B.tree_kernel(torch.zeros((4, 64), dtype=torch.uint8))
     with pytest.raises(ValueError, match="power of two"):
         B.tree_kernel(torch.zeros((6, 64), dtype=torch.uint8))
+
+
+def test_tree_openings_match_open_many_and_the_host_tree(trees):
+    """DeviceMerkleTree.openings / paths / values_at / open: one tree's
+    queries, as open_many gives them and as the JAX package's host tree
+    opens them."""
+    vals, port, ref = trees
+    idx = [7, 0, 1023, 512]
+    values, paths = port.openings(idx)
+    assert (values, paths) == merkle.open_many([(port, idx)])[0]
+    assert port.values_at(idx) == values == [vals[i] for i in idx]
+    assert port.paths(idx) == paths == [ref.open(i) for i in idx]
+    assert port.open(5) == ref.open(5)
+
+
+def test_commit_and_open_ints_match_jax():
+    random.seed(9)
+    vals = [0, 1, P - 1, P - 2] + [random.randrange(P) for _ in range(12)]
+    leaves = [str(v).encode() for v in vals]
+    assert merkle.commit(leaves) == jax_merkle.commit(leaves) == merkle.commit_ints(vals)
+    for i in (0, 3, 15):
+        assert merkle.open_ints(i, vals) == jax_merkle.open_ints(i, vals)

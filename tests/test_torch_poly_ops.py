@@ -135,3 +135,35 @@ def test_mpoly_evaluate_codewords():
     assert [int(v) for v in L.mont_to_ints(got)] == want
     empty = PO.mpoly_evaluate_codewords({}, [L.ints_to_mont(pts[0], "cpu")])
     assert torch.equal(empty, torch.zeros_like(empty))
+
+
+def test_dpoly_leftovers_match_jax():
+    """DPoly.from_ints and shift against the JAX package's DPoly on the same
+    ints; const_mul and evaluate, whose JAX forms compile XLA programs of
+    seconds each, against the host reference."""
+    vals, x, c = _rand(40, 6), _rand(41, 1)[0], _rand(42, 1)[0]
+    d, jd = PO.DPoly.from_ints(vals, "cpu"), JPO.DPoly.from_ints(vals)
+    assert np.array_equal(d.c.numpy().astype(np.uint32), np.asarray(jd.c))
+    shifted, jshifted = d.shift(3), jd.shift(3)
+    assert shifted.to_ints() == jshifted.to_ints() == [0, 0, 0] + vals
+    # the degree of a shifted polynomial: scanned, or carried from a known one
+    assert shifted.degree() == 8 and PO.DPoly(d.c, 5).shift(3)._degree == 8
+    assert PO.DPoly.from_ints([], "cpu").shift(2).to_ints() == []
+    assert d.evaluate(x) == _host(vals).evaluate(x)
+    assert d.const_mul(c).to_ints() == [v * c % P for v in vals]
+    assert PO.DPoly.zero("cpu").evaluate(x) == 0
+
+
+@pytest.mark.parametrize("n", [7, PO.PARALLEL_EVAL_MIN])
+def test_evaluate_many_batched(n):
+    """Three polynomials, each at its own 4 points, against the host
+    reference: Horner below 513 coefficients, the log-depth form at 513."""
+    coeffs = [_rand(50 + b, n) for b in range(3)]
+    pts = [_rand(60 + b, 4) for b in range(3)]
+    c_t = torch.stack([L.ints_to_mont(c, "cpu") for c in coeffs])
+    p_t = torch.stack([L.ints_to_mont(p, "cpu") for p in pts])
+    got = PO.evaluate_many_batched(c_t, p_t)
+    assert [[int(v) for v in row] for row in L.mont_to_ints(got)] == [
+        [_host(c).evaluate(x) for x in p] for c, p in zip(coeffs, pts)]
+    with pytest.raises(ValueError):
+        PO.evaluate_many_batched(c_t, p_t[:2])

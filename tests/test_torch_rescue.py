@@ -203,11 +203,36 @@ def test_kernel_wrappers_refuse_cpu_tensors(rp):
     state = torch.zeros((4, 2, L.NLIMB), dtype=L.DTYPE)
     with pytest.raises(ValueError, match="CUDA"):
         R.permutation_kernel(state, mds, rc, 27, rp.alpha, rp.alpha_inv)
+    # wider than any instantiation: refused before the device is looked at
     with pytest.raises(NotImplementedError):
-        R.permutation_kernel(torch.zeros((4, 3, L.NLIMB), dtype=L.DTYPE), mds, rc, 27,
-                             rp.alpha, rp.alpha_inv)
+        R.permutation_kernel(torch.zeros((4, R.KERNEL_MAX_M + 1, L.NLIMB), dtype=L.DTYPE), mds,
+                             rc, 27, rp.alpha, rp.alpha_inv)
     words = torch.zeros((16, 4), dtype=L.DTYPE)
     with pytest.raises(ValueError, match="CUDA"):
         B.compress_kernel(words, words, torch.zeros(4, dtype=L.DTYPE))
     with pytest.raises(ValueError, match="CUDA"):
         MC.mont_mul_chain_kernel(torch.zeros((4, L.NLIMB), dtype=L.DTYPE))
+
+
+@pytest.mark.parametrize("m", [3, 4])
+def test_wider_states_match_jax(m):
+    """RescuePrime at state widths 3 and 4 (capacity 1): the constants
+    against the JAX package's (its device arrays carried over), the plain
+    batched hash of 8 seeded inputs against its host hash, and a launch
+    plan whose blocks hold whole states."""
+    rp, jrp = RescuePrime(Field(), m=m), JRescuePrime(JField(), m=m)
+    assert rp.MDS == jrp.MDS and rp.round_constants == jrp.round_constants
+    mds_j, rc_j = jrp._device_constants()
+    mds, rc = carry.rescue_constants_from_jax(np.asarray(mds_j), np.asarray(rc_j), "cpu")
+    got_mds, got_rc = rp._device_constants("cpu")
+    assert got_mds.shape == (m, m, L.NLIMB) and got_rc.shape == (2 * 27 * m, L.NLIMB)
+    assert torch.equal(got_mds, mds) and torch.equal(got_rc, rc)
+    rng = np.random.default_rng(20 + m)
+    inputs = [0, P - 1] + [int(rng.integers(0, 1 << 62)) * int(rng.integers(0, 1 << 62)) % P
+                           for _ in range(6)]
+    assert rp.hash_batch(inputs, device="cpu") == [jrp.hash(x) for x in inputs]
+    for n in (1, 42, 43, 1 << 20):
+        plan = R.launch_plan(n, m)
+        assert plan["threads"] % m == 0 and 128 - m < plan["threads"] <= 128
+        assert (plan["blocks"] - 1) * plan["threads"] < n * m <= plan["blocks"] * plan["threads"]
+    assert R.launch_plan(1 << 20) == {"blocks": (1 << 21) // 128, "threads": 128}

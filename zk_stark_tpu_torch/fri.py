@@ -3,11 +3,15 @@
 Counterpart of the JAX package's ``fri.py``: identical transcript bytes,
 index sampling and colinearity checks.  Each commit round is one fold (the
 fold kernel on the card, through the engine: ``parallel/engine.py``) and
-one Merkle tree built on the device; only the root crosses to the host.  :meth:`FRI.prove` opens every round's queries
-with one :func:`merkle.open_many`.  The verifier runs on the host except
-for the last-codeword check, whose iNTT, degree scan and re-evaluation run
-on the FRI's device as one segment (``segments.Segment``, the JAX
-package's ``_lowdeg_kernel``), cached per codeword length and coset.
+one Merkle tree built on the device; only the root crosses to the host.
+:meth:`FRI.prove` opens every round's queries with one
+:func:`merkle.open_many` (:meth:`FRI.query` opens one round alone).  The
+verifier runs on the host except for the last-codeword check, whose iNTT,
+degree scan and re-evaluation run on the FRI's device as one segment
+(``segments.Segment``, the JAX package's ``_lowdeg_kernel``), cached per
+codeword length and coset; an optional ``timer``
+(``utils.profiling.StageTimer``) collects the verifier's stages under the
+JAX package's names.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from .poly import Polynomial
 from .proof_stream import Codeword, Leafs, Path, ProofStream, Root
 from .utils.bits import bit_index
 from .utils.hashing import PROOF_BYTES, blake2b512
+from .utils.profiling import stage
 
 
 class FRI:
@@ -50,6 +55,9 @@ class FRI:
         self.device = torch.device(device)
         #: the prover's engine for the fold rounds; the verifier uses none
         self.engine = engine if engine is not None else DEFAULT
+        #: an optional ``utils.profiling.StageTimer`` for the verifier's
+        #: stages (``Stark.verify`` sets it)
+        self.timer = None
         if self.device.type == "cuda" and domain_length > MAX_KERNEL_N ** 3:
             raise NotImplementedError(
                 f"FRI domain {domain_length} > {MAX_KERNEL_N ** 3} on the card is beyond "
@@ -66,6 +74,15 @@ class FRI:
             codeword_length //= 2
             num += 1
         return num
+
+    def evaluate_domain(self) -> list[int]:
+        """The coset points offset * omega^i on the host."""
+        p = self.field.order
+        out, cur = [], self.offset % p
+        for _ in range(self.domain_length):
+            out.append(cur)
+            cur = cur * self.omega % p
+        return out
 
     # -- index sampling ------------------------------------------------------
 
@@ -158,6 +175,28 @@ class FRI:
             proof_stream.push(Path(tuple(b_paths[s])))
             proof_stream.push(Path(tuple(c_paths[s])))
 
+    def query(
+        self,
+        current: merkle.DeviceMerkleTree,
+        nxt: merkle.DeviceMerkleTree,
+        indices_c: list[int],
+        proof_stream: ProofStream,
+    ) -> list[int]:
+        """One round's openings: ``current`` at ``indices_c`` and their
+        partners half a codeword on, ``nxt`` at ``indices_c``, pushed as
+        :meth:`prove` pushes each round (which opens every round at once);
+        returns the indices opened in ``current``."""
+        half = current.n // 2
+        indices_a = list(indices_c)
+        indices_b = [i + half for i in indices_c]
+        (ab_vals, ab_paths), (c_vals, c_paths) = merkle.open_many(
+            [(current, indices_a + indices_b), (nxt, indices_a)]
+        )
+        self._push_round_queries(
+            proof_stream, ab_vals, ab_paths, c_vals, c_paths, len(indices_c)
+        )
+        return indices_a + indices_b
+
     def prove(self, codeword: torch.Tensor, proof_stream: ProofStream) -> list[int]:
         assert self.domain_length == codeword.shape[0], (
             "domain length does not match initial codeword length"
@@ -244,8 +283,9 @@ class FRI:
         # does not run
         if len(last_codeword) != self.domain_length >> (num_rounds - 1):
             raise ValueError("last codeword has the wrong length")
-        if merkle.commit_ints(last_codeword) != roots[-1]:
-            raise ValueError("last codeword is not well formed")
+        with stage(self.timer, "v_fri_last_root"):
+            if merkle.commit_ints(last_codeword) != roots[-1]:
+                raise ValueError("last codeword is not well formed")
 
         # low-degree check
         degree = len(last_codeword) // self.expansion_factor - 1
@@ -257,20 +297,21 @@ class FRI:
         if pow(last_omega, -1, p) != pow(last_omega, len(last_codeword) - 1, p):
             raise ValueError("omega does not have the right order")
 
-        poly_degree, reeval = self._last_codeword_check(
-            last_codeword, last_omega, last_offset
-        )
-        if poly_degree < 0:
-            # zero polynomial: the reference's degree() returns None
-            raise ValueError("received none instead of polynomial degree")
-        if poly_degree > degree:
-            raise ValueError(
-                f"last codeword does not correspond to polynomial of low "
-                f"enough degree (it is {poly_degree} but should be "
-                f"<= {degree})"
+        with stage(self.timer, "v_fri_lowdeg"):
+            poly_degree, reeval = self._last_codeword_check(
+                last_codeword, last_omega, last_offset
             )
-        if reeval != last_codeword:
-            raise ValueError("re-evaluated codeword does not match original")
+            if poly_degree < 0:
+                # zero polynomial: the reference's degree() returns None
+                raise ValueError("received none instead of polynomial degree")
+            if poly_degree > degree:
+                raise ValueError(
+                    f"last codeword does not correspond to polynomial of low "
+                    f"enough degree (it is {poly_degree} but should be "
+                    f"<= {degree})"
+                )
+            if reeval != last_codeword:
+                raise ValueError("re-evaluated codeword does not match original")
 
         top_level_indices = self.sample_indices(
             proof_stream.fiat_shamir_verifier(PROOF_BYTES),
@@ -286,33 +327,35 @@ class FRI:
             indices_a = list(indices_c)
             indices_b = [i + (self.domain_length >> (r + 1)) for i in indices_a]
 
-            aa, bb, cc = [], [], []
-            for s in range(self.num_colinearity_tests):
-                ay, by, cy = proof_stream.pull_leafs()
-                aa.append(ay)
-                bb.append(by)
-                cc.append(cy)
-                if r == 0:
-                    polynomial_values.append((indices_a[s], ay))
-                    polynomial_values.append((indices_b[s], by))
-                ax = offset * pow(omega, indices_a[s], p) % p
-                bx = offset * pow(omega, indices_b[s], p) % p
-                cx = alphas[r]
-                if not Polynomial.test_colinearity(
-                    self.field, [(ax, ay), (bx, by), (cx, cy)]
-                ):
-                    raise ValueError("colinearity check failure")
+            with stage(self.timer, "v_fri_colinearity"):
+                aa, bb, cc = [], [], []
+                for s in range(self.num_colinearity_tests):
+                    ay, by, cy = proof_stream.pull_leafs()
+                    aa.append(ay)
+                    bb.append(by)
+                    cc.append(cy)
+                    if r == 0:
+                        polynomial_values.append((indices_a[s], ay))
+                        polynomial_values.append((indices_b[s], by))
+                    ax = offset * pow(omega, indices_a[s], p) % p
+                    bx = offset * pow(omega, indices_b[s], p) % p
+                    cx = alphas[r]
+                    if not Polynomial.test_colinearity(
+                        self.field, [(ax, ay), (bx, by), (cx, cy)]
+                    ):
+                        raise ValueError("colinearity check failure")
 
-            for i in range(self.num_colinearity_tests):
-                path = proof_stream.pull_path()
-                if not merkle.verify_int(roots[r], indices_a[i], path, aa[i]):
-                    raise ValueError("Merkle auth path verification failed for aa")
-                path = proof_stream.pull_path()
-                if not merkle.verify_int(roots[r], indices_b[i], path, bb[i]):
-                    raise ValueError("Merkle auth path verification failed for bb")
-                path = proof_stream.pull_path()
-                if not merkle.verify_int(roots[r + 1], indices_c[i], path, cc[i]):
-                    raise ValueError("Merkle auth path verification failed for cc")
+            with stage(self.timer, "v_fri_paths"):
+                for i in range(self.num_colinearity_tests):
+                    path = proof_stream.pull_path()
+                    if not merkle.verify_int(roots[r], indices_a[i], path, aa[i]):
+                        raise ValueError("Merkle auth path verification failed for aa")
+                    path = proof_stream.pull_path()
+                    if not merkle.verify_int(roots[r], indices_b[i], path, bb[i]):
+                        raise ValueError("Merkle auth path verification failed for bb")
+                    path = proof_stream.pull_path()
+                    if not merkle.verify_int(roots[r + 1], indices_c[i], path, cc[i]):
+                        raise ValueError("Merkle auth path verification failed for cc")
 
             omega = omega * omega % p
             offset = offset * offset % p

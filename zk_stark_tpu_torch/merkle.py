@@ -50,6 +50,19 @@ class DeviceMerkleTree:
         self.levels = blake2b.split_levels(leaves, blake2b.tree_digests(leaves))
         self.root = self.levels[-1][0].cpu().numpy().tobytes()
 
+    def openings(self, indices: Sequence[int]) -> tuple[list[int], list[list[bytes]]]:
+        """(values, sibling paths) at ``indices``: one gather, one copy."""
+        return open_many([(self, indices)])[0]
+
+    def paths(self, indices: Sequence[int]) -> list[list[bytes]]:
+        return self.openings(indices)[1]
+
+    def open(self, index: int) -> list[bytes]:
+        return self.paths([index])[0]
+
+    def values_at(self, indices: Sequence[int]) -> list[int]:
+        return self.openings(indices)[0]
+
     def all_values(self) -> list[int]:
         return [int(v) for v in L.limbs_to_ints(self.canon)]
 
@@ -137,8 +150,16 @@ class MerkleTree:
         return path
 
 
+def commit(leaf_data: Sequence[bytes]) -> bytes:
+    return MerkleTree(leaf_data).root
+
+
 def commit_ints(values: Sequence[int]) -> bytes:
     return MerkleTree.from_ints(values).root
+
+
+def open_ints(index: int, values: Sequence[int]) -> list[bytes]:
+    return MerkleTree.from_ints(values).open(index)
 
 
 def verify(root: bytes, index: int, path: Sequence[bytes], leaf_data: bytes) -> bool:

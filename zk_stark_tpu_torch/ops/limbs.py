@@ -125,6 +125,21 @@ def mont_to_ints(t: torch.Tensor) -> np.ndarray:
     return limbs_to_ints(from_mont(t))
 
 
+def mont_to_canonical_np(t: torch.Tensor) -> np.ndarray:
+    """Montgomery tensor -> host ``uint32[..., 8]`` canonical limbs (the JAX
+    package's array type), without a Python int per element; pair with
+    :func:`row_to_int` for the few values needed one at a time."""
+    return from_mont(t).cpu().numpy().astype(np.uint32)
+
+
+def row_to_int(row) -> int:
+    """One canonical limb row [8] -> Python int."""
+    acc = 0
+    for k in reversed(range(NLIMB)):
+        acc = (acc << LIMB_BITS) | int(row[k])
+    return acc
+
+
 # -----------------------------------------------------------------------------
 # Carry normalisation
 # -----------------------------------------------------------------------------
@@ -193,6 +208,11 @@ def neg_mod(a: torch.Tensor) -> torch.Tensor:
 def is_zero(a: torch.Tensor) -> torch.Tensor:
     """Boolean mask [...]: element == 0 (in either domain: 0*R = 0)."""
     return (a == 0).all(dim=-1)
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boolean mask [...]: elementwise equality (limbs are canonical)."""
+    return (a == b).all(dim=-1)
 
 
 # -----------------------------------------------------------------------------

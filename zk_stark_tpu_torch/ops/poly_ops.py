@@ -17,6 +17,12 @@ inputs; the NTTs go through the kernel on the card.  The functions the
 prover calls take an ``engine`` (``parallel/engine.py``; the single-device
 ``DEFAULT`` when None) for their transforms and inversions, as the JAX
 package's do.
+
+The arbitrary-domain toolkit (:func:`fast_zerofier`,
+:func:`fast_evaluate_domain`, :func:`fast_interpolate_domain`) runs the
+subproduct trees of ``ops/multipoint.py`` at the JAX package's dispatch
+thresholds; the zerofier tree is built level by level, one batched product
+a level.
 """
 
 from __future__ import annotations
@@ -27,7 +33,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..field import Field
+from ..poly import Polynomial
+from ..utils.bits import is_pow2, next_pow2
 from . import limbs as L
+from . import multipoint
+from ._build import resolve_device
 from .ntt import intt_mont, ntt_mont, powers_mont
 
 P = L.P
@@ -87,6 +98,10 @@ class DPoly:
     def __init__(self, c: torch.Tensor, degree: Optional[int] = "unknown"):
         self.c = c
         self._degree = degree
+
+    @classmethod
+    def from_ints(cls, vals: Sequence[int], device="cuda") -> "DPoly":
+        return cls(L.ints_to_mont(list(vals), device))
 
     @classmethod
     def zero(cls, device) -> "DPoly":
@@ -151,6 +166,35 @@ class DPoly:
         return DPoly(
             L.mont_mul(self.c, powers_mont(factor_int, n, self.device)), self._degree
         )
+
+    def shift(self, k: int) -> "DPoly":
+        """Multiply by x^k.  A degree not yet scanned stays unknown (the JAX
+        package's ``shift`` marks it None, the zero polynomial's)."""
+        if k == 0 or len(self) == 0:
+            return self
+        d = self._degree
+        return DPoly(
+            torch.cat([self.c.new_zeros((k, L.NLIMB)), self.c]),
+            d if d is None or d == "unknown" else d + k,
+        )
+
+    def _scalar(self, v: int) -> torch.Tensor:
+        # a caller's value: uploaded anew, never cached (limbs.int_to_mont)
+        return L.ints_to_mont([v], self.device)[0]
+
+    def const_mul(self, scalar_int: int) -> "DPoly":
+        if len(self) == 0:
+            return self
+        return DPoly(L.mont_mul(self.c, self._scalar(scalar_int)))
+
+    def evaluate(self, x_int: int) -> int:
+        """The value at a host point: its powers by doubling, the products
+        and a tree sum on the device."""
+        n = len(self)
+        if n == 0:
+            return 0
+        pows = _power_table(self._scalar(x_int).unsqueeze(0), n)[:, 0]
+        return int(L.mont_to_ints(reduce_sum_mont(L.mont_mul(self.c, pows)).unsqueeze(0))[0])
 
 
 # -----------------------------------------------------------------------------
@@ -337,9 +381,10 @@ PARALLEL_EVAL_MIN = 513
 
 
 def _evaluate_horner(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """coeffs [nb, n, 8] at points [k, 8] -> [nb, k, 8]: n dependent steps,
-    all polynomials at once."""
-    acc = torch.zeros((coeffs.shape[0],) + tuple(points.shape), dtype=L.DTYPE,
+    """coeffs [nb, n, 8] at shared points [k, 8], or at points [nb, k, 8]
+    of their own, -> [nb, k, 8]: n dependent steps, all polynomials at
+    once."""
+    acc = torch.zeros((coeffs.shape[0],) + tuple(points.shape[-2:]), dtype=L.DTYPE,
                       device=points.device)
     for j in range(coeffs.shape[1] - 1, -1, -1):
         acc = L.add_mod(L.mont_mul(acc, points), coeffs[:, j].unsqueeze(1))
@@ -347,19 +392,22 @@ def _evaluate_horner(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor
 
 
 def _evaluate_parallel(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """coeffs [nb, n, 8] at points [k, 8] -> [nb, k, 8] at log depth: the
-    powers x^0..x^(n-1) by doubling, then every coefficient-power product
-    and a tree sum.  The products are taken in blocks of coefficients (at
-    most ``limbs.MUL_BLOCK`` products each, one step of the product, so the
-    tree sum never holds more) and the blocks' sums added; field sums are
-    exact, so this equals the JAX package's single zero-padded tree sum."""
+    """coeffs [nb, n, 8] at shared points [k, 8], or at points [nb, k, 8]
+    of their own, -> [nb, k, 8] at log depth: the powers x^0..x^(n-1) by
+    doubling, then every coefficient-power product and a tree sum.  The
+    products are taken in blocks of coefficients (at most
+    ``limbs.MUL_BLOCK`` products each, one step of the product, so the tree
+    sum never holds more) and the blocks' sums added; field sums are exact,
+    so this equals the JAX package's single zero-padded tree sum."""
     nb, n = coeffs.shape[0], coeffs.shape[1]
-    k = points.shape[0]
-    pows = _power_table(points, n)  # [n, k, 8]
+    k = points.shape[-2]
+    pows = _power_table(points, n)  # [n, k, 8] or [n, nb, k, 8]
+    if points.dim() == 3:
+        pows = pows.transpose(0, 1)
     step = max(1, L.MUL_BLOCK // (nb * k))
     acc = None
     for j in range(0, n, step):
-        prods = L.mont_mul(pows[j : j + step], coeffs[:, j : j + step].unsqueeze(2))
+        prods = L.mont_mul(pows[..., j : j + step, :, :], coeffs[:, j : j + step].unsqueeze(2))
         part = _tree_sum(prods, dim=1)  # [nb, k, 8]
         acc = part if acc is None else L.add_mod(acc, part)
     return acc
@@ -369,10 +417,11 @@ def evaluate_polys_shared(coeffs: torch.Tensor, points: torch.Tensor) -> torch.T
     """Polynomials coeffs [nb, n, 8] at shared points [k, 8] -> [nb, k, 8]:
     Horner's rule below :data:`PARALLEL_EVAL_MIN` coefficients, the
     log-depth form from there (the verifier's transition zerofier and the
-    chain's round-constant polynomials)."""
+    chain's round-constant polynomials).  Points [nb, k, 8] give each
+    polynomial its own (:func:`evaluate_many_batched`)."""
     nb, n = coeffs.shape[0], coeffs.shape[1]
     if n == 0:
-        return torch.zeros((nb,) + tuple(points.shape), dtype=L.DTYPE,
+        return torch.zeros((nb,) + tuple(points.shape[-2:]), dtype=L.DTYPE,
                            device=points.device)
     if n >= PARALLEL_EVAL_MIN:
         return _evaluate_parallel(coeffs, points)
@@ -382,6 +431,15 @@ def evaluate_polys_shared(coeffs: torch.Tensor, points: torch.Tensor) -> torch.T
 def evaluate_many(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Dense polynomial [n, 8] at points [k, 8] -> [k, 8]."""
     return evaluate_polys_shared(coeffs.unsqueeze(0), points)[0]
+
+
+def evaluate_many_batched(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Polynomial b of coeffs [B, n, 8] at its own points [B, k, 8] ->
+    [B, k, 8]."""
+    if points.dim() != 3 or coeffs.shape[0] != points.shape[0]:
+        raise ValueError(f"evaluate_many_batched: {coeffs.shape[0]} polynomials, "
+                         f"points {tuple(points.shape)}")
+    return evaluate_polys_shared(coeffs, points)
 
 
 @functools.lru_cache(maxsize=None)
@@ -425,3 +483,82 @@ def mpoly_evaluate_codewords(
         pows = _power_table(points[v], max_e + 1)
         term = L.mont_mul(term, pows[exps])
     return _tree_sum(term.expand((len(items), n, L.NLIMB)))
+
+
+# -----------------------------------------------------------------------------
+# Arbitrary-domain toolkit
+# -----------------------------------------------------------------------------
+
+#: both sizes at or above this send arbitrary-domain evaluation to the
+#: subproduct tree (ops/multipoint.py): the JAX package's ``_TREE_EVAL_MIN``
+#: (its crossover on a TPU; where it lies on the card is still open, PERF.md)
+TREE_EVAL_MIN = 4096
+#: from this power-of-two size, interpolation on an unstructured domain takes
+#: the tree in place of host Lagrange: the JAX package's ``_TREE_INTERP_MIN``
+TREE_INTERP_MIN = 2048
+
+
+def fast_zerofier(domain: torch.Tensor, root_int: int, root_order: int) -> DPoly:
+    """prod (x - d) over an arbitrary Montgomery domain [k, 8], built level
+    by level: ceil(log2 k) batched products (``multipoint.zerofier_levels``,
+    the leaves past k the constant 1), not one product a pair of nodes.
+    The zerofier is unique, so its coefficients equal the host reference's.
+    ``root_order`` bounds the degree, as the JAX package's products do;
+    ``root_int`` is taken for parity with the JAX package's signature and is
+    not read (each level's transform takes the root of its own size).  The
+    prover's first-k-powers domains have :func:`zerofier_first_k`."""
+    k = domain.shape[0]
+    if k == 0:
+        return DPoly.zero(domain.device)
+    if k >= root_order:
+        raise ValueError(f"fast_zerofier: degree {k} is not below the root order {root_order}")
+    levels = multipoint.zerofier_levels(domain, next_pow2(k))
+    return DPoly(levels[-1][: k + 1, 0], k)
+
+
+def fast_evaluate_domain(poly: DPoly, domain: torch.Tensor) -> torch.Tensor:
+    """``poly`` at an arbitrary Montgomery domain [k, 8] -> [k, 8]: the
+    subproduct tree when k is a power of two and both k and the coefficient
+    count are at least :data:`TREE_EVAL_MIN`, else :func:`evaluate_many`.
+    The same field elements either way."""
+    k, n = domain.shape[0], len(poly)
+    if is_pow2(k) and k >= TREE_EVAL_MIN and n >= TREE_EVAL_MIN:
+        return multipoint.evaluate_tree(poly.c, domain)
+    return evaluate_many(poly.c, domain)
+
+
+def fast_interpolate_domain(
+    field_order_unused,
+    domain_ints: Sequence[int],
+    values_ints: Sequence[int],
+    root_int: int,
+    root_order: int,
+    device="cuda",
+) -> DPoly:
+    """The polynomial of degree below k through k host points, on
+    ``device``: the first k powers of ``root_int`` go to
+    :func:`interpolate_first_k`; a power-of-two k from
+    :data:`TREE_INTERP_MIN` to ``multipoint.interpolate_tree``; anything
+    else to host Lagrange (``Polynomial.interpolate_domain``).  Interpolation is
+    unique, so every branch gives the same coefficients."""
+    device = resolve_device(device)
+    k = len(domain_ints)
+    if k != len(values_ints):
+        raise ValueError(f"fast_interpolate_domain: {k} points, {len(values_ints)} values")
+    if k == 0:
+        return DPoly.zero(device)
+    expected = 1
+    structured = True
+    for d in domain_ints:
+        if d % P != expected:
+            structured = False
+            break
+        expected = expected * root_int % P
+    if structured and k <= root_order:
+        return interpolate_first_k(root_int, root_order, k, L.ints_to_mont(values_ints, device))
+    if is_pow2(k) and k >= TREE_INTERP_MIN:
+        return DPoly(multipoint.interpolate_tree(L.ints_to_mont(domain_ints, device),
+                                                 L.ints_to_mont(values_ints, device)))
+    return DPoly.from_ints(
+        Polynomial.interpolate_domain(Field(), domain_ints, values_ints).coeffs, device)
+

@@ -6,10 +6,10 @@ x^alpha -> MDS -> + first constants -> x^alpha_inv -> MDS -> + second
 constants, the bulk (Merkle-leaf) hashing path of ``RescuePrime``.
 
 On a CUDA tensor :func:`permutation_batch` launches ``csrc/rescue.cu`` (one
-thread per register of a state, every round in one launch, built for
-m = 2; each S-box runs the exponent chain of :func:`exponent_chain`); on a
-CPU tensor it runs :func:`permutation_plain`, the tensor-code counterpart
-of the JAX package's column kernel.  The TPU's limb-plane layout, its pad
+thread per register of a state, every round in one launch, instantiated for
+m = 2 .. :data:`KERNEL_MAX_M`; each S-box runs the exponent chain of
+:func:`exponent_chain`); on a CPU tensor it runs :func:`permutation_plain`,
+the tensor-code counterpart of the JAX package's column kernel.  The TPU's limb-plane layout, its pad
 to 128 lanes and the switch between the two JAX kernels have no
 counterpart: they exist for the TPU's vector tiles.
 """
@@ -34,9 +34,9 @@ RESCUE_KERNEL = _build.Kernel(
     + [_STEPS_PTR, ctypes.c_int, _STEPS_PTR, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     replaces="zk_stark_tpu/ops/rescue_ops.py:163 (_permutation_kernel)",
 )
-#: the state width the kernel is built for (``kM`` in ``csrc/rescue.cu``)
-KERNEL_M = 2
-#: threads of a block
+#: the widest state the kernel is instantiated for (``kMaxM`` in ``csrc/rescue.cu``)
+KERNEL_MAX_M = 8
+#: most threads of a block
 KERNEL_THREADS = 128
 #: slots and most steps of an exponent chain (``kSlots``, ``kMaxSteps``)
 KERNEL_SLOTS = 4
@@ -209,19 +209,22 @@ def _steps(e: int):
     return (ctypes.c_uint32 * len(steps))(*steps), len(steps)
 
 
-def launch_plan(n_states: int) -> dict:
+def launch_plan(n_states: int, m: int = 2) -> dict:
     """The blocks and threads a block :func:`permutation_kernel` launches
-    for ``n_states``: m = KERNEL_M threads a state (one register each),
-    KERNEL_THREADS a block whatever the batch (``tools/kernel_shape_probe.py``
-    times other widths; PERF.md)."""
-    return {"blocks": -(-n_states * KERNEL_M // KERNEL_THREADS), "threads": KERNEL_THREADS}
+    for ``n_states`` of width m: m threads a state (one register each), a
+    block the largest multiple of m up to KERNEL_THREADS whatever the batch
+    (128 at m = 2 and 4, 126 at m = 3; ``tools/kernel_shape_probe.py``
+    times other widths at m = 2; PERF.md)."""
+    threads = KERNEL_THREADS // m * m
+    return {"blocks": -(-n_states * m // threads), "threads": threads}
 
 
 def permutation_kernel(state, mds, round_constants, n_rounds: int, alpha: int, alpha_inv: int):
     """Launch ``csrc/rescue.cu``; same contract as :func:`permutation_plain`."""
     b, m = state.shape[0], state.shape[1]
-    if m != KERNEL_M:
-        raise NotImplementedError(f"rescue kernel: state width m = {m}, built for {KERNEL_M}")
+    if not 2 <= m <= KERNEL_MAX_M:
+        raise NotImplementedError(
+            f"rescue kernel: state width m = {m}, instantiated for 2 .. {KERNEL_MAX_M}")
     _build.check_cuda_tensor(state, "rescue state", L.DTYPE, (b, m, L.NLIMB))
     _build.check_cuda_tensor(mds, "rescue mds", L.DTYPE)
     _build.check_cuda_tensor(round_constants, "rescue round_constants", L.DTYPE)
@@ -232,7 +235,7 @@ def permutation_kernel(state, mds, round_constants, n_rounds: int, alpha: int, a
     if b:
         RESCUE_KERNEL(
             state.data_ptr(), out.data_ptr(), mds.data_ptr(), round_constants.data_ptr(),
-            b, m, n_rounds, a_steps, a_len, ai_steps, ai_len, launch_plan(b)["threads"],
+            b, m, n_rounds, a_steps, a_len, ai_steps, ai_len, launch_plan(b, m)["threads"],
             _build.stream_ptr(state.device),
         )
     return out
@@ -243,7 +246,7 @@ def permutation_batch(state, mds, round_constants, n_rounds: int, alpha: int, al
 
     state: [B, m, 8] Montgomery; mds: [m, m, 8]; round_constants:
     [2 * n_rounds * m, 8] (at least).  Returns [B, m, 8].  The kernel on the
-    card (m = 2 only: any other width raises there), the plain version on
+    card (a width above KERNEL_MAX_M raises there), the plain version on
     the CPU.
     """
     if state.is_cuda:

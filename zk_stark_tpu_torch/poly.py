@@ -115,29 +115,28 @@ class Polynomial:
     def interpolate_domain(
         cls, field: Field, domain: Sequence[int], values: Sequence[int]
     ) -> "Polynomial":
-        """O(n^2) Lagrange interpolation over arbitrary points
-        (ref: polynomial.rs:123-148).  Gold reference / small inputs."""
+        """Lagrange interpolation over arbitrary distinct points in O(n^2)
+        (ref: polynomial.rs:123-148, which is O(n^3)): the zerofier Z once,
+        then for each point Z / (x - x_i) by synthetic division, weighted by
+        v_i / Z'(x_i).  Interpolation is unique, so the coefficients are the
+        reference's; a repeated point has no inverse and raises ValueError."""
         assert len(domain) == len(values), "domain/values length mismatch"
         assert domain, "cannot interpolate between zero points"
         p = field.order
-        acc = [0] * len(domain)
-
-        for i, xi in enumerate(domain):
-            # prod = values[i] * prod_{j != i} (x - xj) / (xi - xj)
-            prod = [values[i] % p]
-            for j, xj in enumerate(domain):
-                if i == j:
-                    continue
-                inv = pow((xi - xj) % p, -1, p)
-                # prod *= (x - xj) * inv
-                nxt = [0] * (len(prod) + 1)
-                for k, c in enumerate(prod):
-                    nxt[k] = (nxt[k] - c * xj) % p
-                    nxt[k + 1] = (nxt[k + 1] + c) % p
-                prod = [c * inv % p for c in nxt]
-            for k, c in enumerate(prod):
-                acc[k] = (acc[k] + c) % p
-
+        k = len(domain)
+        z = cls.zerofier_domain(field, domain).coeffs
+        acc = [0] * k
+        for xi, vi in zip(domain, values):
+            q = [0] * k  # Z / (x - xi)
+            c = q[k - 1] = z[k]
+            for j in range(k - 1, 0, -1):
+                c = q[j - 1] = (z[j] + xi * c) % p
+            den = 0  # q(xi) = Z'(xi)
+            for c in reversed(q):
+                den = (den * xi + c) % p
+            w = vi * pow(den, -1, p) % p
+            for j in range(k):
+                acc[j] += w * q[j]
         return cls(field, acc)
 
     @classmethod

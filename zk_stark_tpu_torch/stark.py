@@ -42,6 +42,7 @@ from .field import Field
 from .fri import FRI
 from .models.air import as_air
 from .ops import limbs as L
+from .ops._build import resolve_device
 from .ops.ntt import powers_mont
 from .ops.poly_ops import (
     DPoly,
@@ -57,6 +58,7 @@ from .poly import MPolynomial, Polynomial
 from .proof_stream import Path, ProofStream, Root, Value
 from .utils.bits import bit_count
 from .utils.hashing import PROOF_BYTES
+from .utils.profiling import stage
 
 
 class ProvingError(Exception):
@@ -69,17 +71,6 @@ class VerificationError(Exception):
 
 
 Boundary = Sequence[tuple[int, int, int]]  # (cycle, register, value)
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on.  ``"cuda"`` (the default of every
-    entry point) requires a card: there is no quiet fall back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 class Stark:
@@ -118,6 +109,10 @@ class Stark:
         #: the prover's engine (parallel/engine.py); ``stark.engine`` and
         #: ``stark.fri.engine`` may be set after construction
         self.engine = engine if engine is not None else DEFAULT
+        #: an optional ``utils.profiling.StageTimer``: prove and verify add
+        #: their stages' times to it (the JAX package's stage names), beside
+        #: the ``record_function`` spans
+        self.timer = None
 
         randomized_trace_length = num_cycles + self.num_randomizers
         # quirk kept: 1 << bit_count(v) is strictly greater than v even for
@@ -317,7 +312,7 @@ class Stark:
     ) -> bytes:
         ps = proof_stream if proof_stream is not None else ProofStream(self.field)
 
-        with record_function("stark.host_inputs"):
+        with record_function("stark.host_inputs"), stage(self.timer, "host_inputs"):
             # every random draw of the proof, in the reference's order: the
             # trace randomizers, then the randomizer polynomial (one
             # broadcast under a DistEngine)
@@ -365,13 +360,13 @@ class Stark:
             lambda *args: self._segment1(air, *args),
             capture=self.engine.captures_segments,
         )
-        with record_function("stark.segment1"):
+        with record_function("stark.segment1"), stage(self.timer, "segment1"):
             canons, tq_stack, bq_stack, tq_degs = seg1(
                 trace_cols, bi_arrs, bz_arrs, rand_arr
             )
 
         # commit to boundary quotients + randomizer
-        with record_function("stark.commit"):
+        with record_function("stark.commit"), stage(self.timer, "commit_roots"):
             trees = [merkle.DeviceMerkleTree(canons[s]) for s in range(m + 1)]
             for tree in trees:
                 ps.push(Root(tree.root))
@@ -407,11 +402,11 @@ class Stark:
             lambda w, a: self._segment2(w, [a[t] for t in terms], shifts),
             capture=self.engine.captures_segments,
         )
-        with record_function("stark.segment2"):
+        with record_function("stark.segment2"), stage(self.timer, "segment2"):
             (combined,) = seg2(L.ints_to_mont(weights, "cpu"), arrs)
 
         # FRI low-degree proof
-        with record_function("stark.fri_prove"):
+        with record_function("stark.fri_prove"), stage(self.timer, "fri_prove"):
             indices = self.fri.prove(combined, ps)
 
         # open boundary quotients and randomizer
@@ -423,14 +418,16 @@ class Stark:
             duplicated_indices
             + [(i + fri_dl // 2) % fri_dl for i in duplicated_indices]
         )
-        with record_function("stark.openings"):
-            opened = merkle.open_many([(tree, quadrupled_indices) for tree in trees])
-        for vals, paths in opened:
-            for j in range(len(quadrupled_indices)):
-                ps.push(Value(vals[j]))
-                ps.push(Path(tuple(paths[j])))
+        with stage(self.timer, "openings"):
+            with record_function("stark.openings"):
+                opened = merkle.open_many([(tree, quadrupled_indices) for tree in trees])
+            for vals, paths in opened:
+                for j in range(len(quadrupled_indices)):
+                    ps.push(Value(vals[j]))
+                    ps.push(Path(tuple(paths[j])))
 
-        return ps.serialize()
+        with stage(self.timer, "serialize"):
+            return ps.serialize()
 
     # -- verifier ------------------------------------------------------------
 
@@ -512,10 +509,13 @@ class Stark:
 
         points: list[tuple[int, int]] = []
         try:
-            with record_function("stark.verify_fri"):
+            with record_function("stark.verify_fri"), stage(self.timer, "v_fri"):
+                self.fri.timer = self.timer
                 self.fri.verify(ps, points)
         except ValueError as e:
             raise VerificationError(f"FRI verification failed: {e}") from e
+        finally:
+            self.fri.timer = None
         points.sort(key=lambda t: t[0])
         indices = [i for i, _ in points]
         values = [v for _, v in points]
@@ -525,58 +525,60 @@ class Stark:
             + [(i + self.expansion_factor) % self.fri.domain_length for i in indices]
         )
 
-        # boundary quotient leafs
-        leafs: list[dict[int, int]] = []
-        for bqr in boundary_quotient_roots:
-            reg_leafs: dict[int, int] = {}
+        with stage(self.timer, "v_openings"):
+            # boundary quotient leafs
+            leafs: list[dict[int, int]] = []
+            for bqr in boundary_quotient_roots:
+                reg_leafs: dict[int, int] = {}
+                for i in duplicated_indices:
+                    leaf = ps.pull_value()
+                    path = ps.pull_path()
+                    if not merkle.verify_int(bqr, i, path, leaf):
+                        raise VerificationError(
+                            f"boundary quotient root {i} is not verified"
+                        )
+                    reg_leafs[i] = leaf
+                leafs.append(reg_leafs)
+
+            # randomizer leafs
+            randomizers: dict[int, int] = {}
             for i in duplicated_indices:
                 leaf = ps.pull_value()
                 path = ps.pull_path()
-                if not merkle.verify_int(bqr, i, path, leaf):
-                    raise VerificationError(
-                        f"boundary quotient root {i} is not verified"
-                    )
-                reg_leafs[i] = leaf
-            leafs.append(reg_leafs)
-
-        # randomizer leafs
-        randomizers: dict[int, int] = {}
-        for i in duplicated_indices:
-            leaf = ps.pull_value()
-            path = ps.pull_path()
-            if not merkle.verify_int(randomizer_root, i, path, leaf):
-                raise VerificationError(f"randomizer leaf {i} not verified")
-            randomizers[i] = leaf
+                if not merkle.verify_int(randomizer_root, i, path, leaf):
+                    raise VerificationError(f"randomizer leaf {i} not verified")
+                randomizers[i] = leaf
 
         if not indices:
             return
-        boundary_zerofiers = self.boundary_zerofiers(boundary)
-        transition_constraints_degree = self.max_degree(transition_constraints)
-        tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
-        bq_bounds = self.boundary_quotient_degree_bounds(
-            randomized_trace_length, boundary
-        )
-        shifts_tq = [transition_constraints_degree - b for b in tq_bounds]
-        shifts_bq = [transition_constraints_degree - b for b in bq_bounds]
+        with stage(self.timer, "v_comb_host"):
+            boundary_zerofiers = self.boundary_zerofiers(boundary)
+            transition_constraints_degree = self.max_degree(transition_constraints)
+            tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
+            bq_bounds = self.boundary_quotient_degree_bounds(
+                randomized_trace_length, boundary
+            )
+            shifts_tq = [transition_constraints_degree - b for b in tq_bounds]
+            shifts_bq = [transition_constraints_degree - b for b in bq_bounds]
 
-        idx_next = [
-            (i + self.expansion_factor) % self.fri.domain_length for i in indices
-        ]
-        bz_ints = [bz.coeffs if bz.coeffs else [0] for bz in boundary_zerofiers]
-        bi_ints = [bi.coeffs if bi.coeffs else [0] for bi in boundary_interpolants]
-        flat: list[int] = []
-        flat += [self.fri.offset * pow(self.fri.omega, i, p) % p for i in indices]
-        flat += [self.fri.offset * pow(self.fri.omega, i, p) % p for i in idx_next]
-        for s in range(self.num_registers):
-            flat += [leafs[s][i] for i in indices]
-        for s in range(self.num_registers):
-            flat += [leafs[s][i] for i in idx_next]
-        flat += [randomizers[i] for i in indices]
-        flat += weights
-        for c in bz_ints:
-            flat += c
-        for c in bi_ints:
-            flat += c
+            idx_next = [
+                (i + self.expansion_factor) % self.fri.domain_length for i in indices
+            ]
+            bz_ints = [bz.coeffs if bz.coeffs else [0] for bz in boundary_zerofiers]
+            bi_ints = [bi.coeffs if bi.coeffs else [0] for bi in boundary_interpolants]
+            flat: list[int] = []
+            flat += [self.fri.offset * pow(self.fri.omega, i, p) % p for i in indices]
+            flat += [self.fri.offset * pow(self.fri.omega, i, p) % p for i in idx_next]
+            for s in range(self.num_registers):
+                flat += [leafs[s][i] for i in indices]
+            for s in range(self.num_registers):
+                flat += [leafs[s][i] for i in idx_next]
+            flat += [randomizers[i] for i in indices]
+            flat += weights
+            for c in bz_ints:
+                flat += c
+            for c in bi_ints:
+                flat += c
 
         # the transition zerofier uses the CONFIGURED trace length
         # (transition_zerofier), not the boundary-derived one above, which
@@ -594,7 +596,7 @@ class Stark:
                 air, packed, K, W, bz_lens, bi_lens, shifts_tq, shifts_bq
             ),
         )
-        with record_function("stark.verify_combination"):
+        with record_function("stark.verify_combination"), stage(self.timer, "v_comb_seg"):
             (canon,) = seg(L.ints_to_mont(flat, "cpu"))
             got = [int(v) for v in L.limbs_to_ints(canon)]
         if got != values:

@@ -19,7 +19,10 @@ elements) where the checkout has it, and ``ops.blake2b.tree_kernel``
 where the checkout has it: a tree of 2^12 and of 2^20 leaves is timed whole, by ``tree_kernel``
 or else by ``node_kernel`` one level at a time (behind a longer sleep of
 the card, since one launch a level takes longer on the host than on the
-card).  Prints the card line and one JSON line; needs a card.
+card), and ``ops.rescue_ops.permutation_kernel`` on 256, 2^14 and 2^20
+random states of width 2, and of widths 3 and 4 where the checkout's
+kernel takes them (``KERNEL_MAX_M``; unqueued, 3 of 3 runs of 3 calls at
+2^20).  Prints the card line and one JSON line; needs a card.
 """
 
 from __future__ import annotations
@@ -46,9 +49,12 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
+    from zk_stark_tpu_torch.field import Field
+    from zk_stark_tpu_torch.models.rescue_prime import RescuePrime
     from zk_stark_tpu_torch.ops import blake2b as B
     from zk_stark_tpu_torch.ops import fold as FO
     from zk_stark_tpu_torch.ops import limbs as L
+    from zk_stark_tpu_torch.ops import rescue_ops as R
     from zk_stark_tpu_torch.tools.measure import card_line, time_ms
 
     dev = torch.device("cuda", 0)
@@ -126,6 +132,19 @@ def main() -> int:
     words = torch.randint(0, 1 << 32, (2, 16, m), dtype=L.DTYPE, generator=gen).to(dev)
     t = torch.full((m,), 128, dtype=L.DTYPE, device=dev)
     out["compress"] = {m: timed(lambda: B.compress_kernel(words[0], words[1], t), m)}
+    del words
+    out["rescue"] = {}
+    # earlier checkouts' kernel takes m = 2 only
+    for width in [w for w in (2, 3, 4) if w <= getattr(R, "KERNEL_MAX_M", 2)]:
+        rp = RescuePrime(Field(), m=width)
+        mds, rc = rp._device_constants(dev)
+        out["rescue"][f"m={width}"] = {}
+        for n in (256, 1 << 14, 1 << 20):
+            state = field(n * width).reshape(n, width, L.NLIMB)
+            reps, runs = (20, 5) if n < 1 << 20 else (3, 3)
+            out["rescue"][f"m={width}"][n] = time_ms(
+                lambda: R.permutation_kernel(state, mds, rc, rp.N, rp.alpha, rp.alpha_inv),
+                reps=reps, runs=runs)
     torch.cuda.synchronize()
     print(f"card: {card_line()}")
     print(json.dumps(out))
