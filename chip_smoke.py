@@ -109,17 +109,21 @@ runs (run_plain):
    evaluate_many (no NTT); times, bounds, peak device memory; the ntt
    kernel's registers and spills and each pass's block shape;
 7c. the NTT stage-variant probe (tools/ntt_variant_probe.py) at 1024 x
-   1024: kernels a, b and c bit for bit against the plain stages and
-   ntt_kernel, each timed beside its bound, launches counted over the
-   probe's run;
+   1024 natural rows: kernels a (ntt.cu's ntt_stages_kernel itself, its
+   launches on the ntt kernel's count), b, c and d bit for bit against
+   the plain transform of each column and ntt_kernel, each timed beside
+   its bound, launches counted over the probe's run;
 8. the hash-rate yardsticks: the chained Montgomery product (n = 2^18,
-   k = 32, the JAX bench's calibration) and the bare BLAKE2b compression
-   (2^18 messages: the bench's digest-twice message, and random words with
+   k = 32, the JAX bench's calibration; also an n that is a multiple of
+   no chain count, at k = 33) and the bare BLAKE2b compression (2^18
+   messages: the bench's digest-twice message, and random words with
    random byte counts), each bit for bit against its plain version, the
    compressions on 64 samples against hashlib; each entry point driven
    with the counts reset just before and read just after; x^(k+1) checked
-   at k = 32 and 1024; the time per product and per compression (and, as a
-   diagnostic, the compiled instructions per product from the SASS);
+   at k = 32 and 1024; the time per product (k = 32 and 1024) and per
+   compression (and, as a diagnostic, the compiled instructions per
+   product from the SASS, split into multiply-adds and the rest, and the
+   chain kernel's registers and spills);
 9. the batched Rescue-Prime hash (RescuePrime.hash_batch_device, the JAX
    package's entry() workload) at 256 (entry()'s inputs), 2^14 and 2^20
    random inputs, launches counted; the kernel bit for bit against the
@@ -165,7 +169,6 @@ import pathlib
 import re
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -212,6 +215,8 @@ from zk_stark_tpu_torch.tools.measure import (  # noqa: E402
     card_line,
     int32_ops_per_s,
     ntt_bound,
+    ptxas_report,
+    sass_mix,
     time_ms,
 )
 
@@ -253,6 +258,10 @@ CHAIN_PROOF_BYTES = 3_430_752
 CHAIN_N, CHAIN_K = 1 << 18, 32
 #: a chain long enough that launch and ramp do not count: the sustained rate
 CHAIN_K_LONG = 1024
+#: an n that is a multiple of no chain count a thread (its last group
+#: masked) and has more groups than the card holds threads at once (the
+#: threads stride), checked at a k that runs the body's tail
+CHAIN_RAGGED_N, CHAIN_RAGGED_K = (1 << 18) + (1 << 16) + 1, 33
 COMPRESS_N = 1 << 18
 #: random pairs of the product check (besides the 16 edge pairs)
 PRODUCT_PAIRS = 1 << 14
@@ -260,17 +269,12 @@ PRODUCT_PAIRS = 1 << 14
 #: codeword
 RESCUE_SIZES = (256, 1 << 14, 1 << 20)
 RESCUE_HASH_1 = 244180265933090377212304188905974087294  # tests/test_rescue.py
-#: SASS opcodes that are not the arithmetic of a product: memory, control,
-#: special-register reads
 #: the long-NTT phase's sizes: the JAX bench's sweep (bench.py
 #: bench_ntt_sweep, 2^21 and 2^22: four-step here), the four-step's largest,
 #: and one beyond it (the three-pass split)
 LONG_NTT_SIZES = (1 << 21, 1 << 22, 1 << 24, 1 << 25)
 #: the low-degree extension of a 2^23-row trace column at expansion 4
 LDE_COEFFS, LDE_POINTS = 1 << 23, 1 << 25
-NON_ARITH = {"LDG", "STG", "LD", "ST", "LDS", "STS", "LDL", "STL", "LDC", "ULDC",
-             "BRA", "EXIT", "BAR", "NOP", "RET", "CALL", "BSSY", "BSYNC",
-             "WARPSYNC", "JMP", "S2R", "S2UR", "CS2R"}
 
 #: the limb phase: element counts (a small call, the chain's codeword, the
 #: long transforms' size), the operand layouts of limb_operands (REDC, unary,
@@ -433,11 +437,7 @@ def stack_frame(logs: dict, library: str, kernel: str) -> int | None:
     the library was built before this run)."""
     if library not in logs:
         return None
-    lines = logs[library].splitlines()
-    for i, line in enumerate(lines):
-        if line.rstrip().endswith(f"Function properties for {kernel}"):
-            return int(re.search(r"(\d+) bytes stack frame", lines[i + 1]).group(1))
-    raise RuntimeError(f"ptxas printed no properties for {kernel}")
+    return ptxas_report(logs[library], kernel)["stack_bytes"]
 
 
 def leaf_digit_phase(dev, logs: dict) -> dict:
@@ -1353,19 +1353,22 @@ def long_ntt_phase(dev, int_rate: float, logs: dict | None = None) -> dict:
 
 
 def probe_phase(dev) -> dict:
-    """Phase 7c: the NTT stage-variant probe; one row per variant."""
-    for k in NV.VARIANT_KERNELS.values():
-        k.launches = 0
+    """Phase 7c: the NTT stage-variant probe; one row per variant (a's
+    kernel is ntt.cu's, so its launches are the ntt kernel's over the
+    probe's run)."""
+    launches0 = {which: k.launches for which, k in NV.VARIANT_KERNELS.items()}
     result = ntt_variant_probe.run(device=dev)
     torch.cuda.synchronize()
     rows = {}
     for which, r in result.items():
         k = NV.VARIANT_KERNELS[which]
-        require(k.launches > 0, f"kernel {k.name} was not launched by the probe")
-        rows[f"ntt_variant_{which}"] = dict(kernel=k, source="zk_stark_tpu_torch/csrc/ntt_variants.cu",
-                            launches=k.launches,
-                            shape=f"n={ntt_variant_probe.N_POINTS},c={ntt_variant_probe.N_TRANSFORMS}",
-                            **r)
+        launches = k.launches - launches0[which]
+        require(launches > 0, f"kernel {k.name} was not launched by the probe's variant {which}")
+        source = "zk_stark_tpu_torch/csrc/" + ("ntt.cu" if which == "a" else "ntt_variants.cu")
+        rows[f"ntt_variant_{which}"] = dict(
+            kernel=k, source=source, launches=launches,
+            replaces=NV.A_REPLACES if which == "a" else k.replaces,
+            shape=f"n={ntt_variant_probe.N_POINTS},c={ntt_variant_probe.N_TRANSFORMS}", **r)
     return rows
 
 
@@ -1690,26 +1693,6 @@ def batch_inv_phase(dev, int_rate: float) -> dict:
     return row
 
 
-def sass_ops_per_product() -> float:
-    """Integer instructions of one Montgomery product as compiled, counted
-    in the SASS of ``montmul_chain_kernel``: every instruction apart from
-    memory, control and special-register reads, over the 33 product bodies
-    the kernel compiles (the unrolled 32 and the tail's one).  Moves, the
-    loads' and stores' limb repacking and the loop are counted too.  A
-    diagnostic of the code generation beside :data:`MONT_MUL_OPS`, never a
-    bound."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run(
-        [tool, "-sass", "-fun", "montmul_chain_kernel",
-         str(_build.library_path("montmul_chain"))],
-        check=True, capture_output=True, text=True, timeout=120,
-    ).stdout
-    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", out)
-    arith = [op for op in ops if op.split(".")[0] not in NON_ARITH]
-    require(len(ops) > 33 * 40, f"SASS of montmul_chain_kernel: only {len(ops)} instructions")
-    return len(arith) / 33
-
-
 def timed_once(fn):
     """(fn(), its device time in ms) for one call, with CUDA events."""
     torch.cuda.synchronize()
@@ -1722,12 +1705,17 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def montmul_chain_phase(dev, int_rate: float) -> dict:
+def montmul_chain_phase(dev, int_rate: float, logs: dict | None = None) -> dict:
     """Phase 8a: the chained product, the card's measured product rate."""
     gen = torch.Generator().manual_seed(42)
     x = random_mont(CHAIN_N, gen, dev)
     plain, p_ms = timed_once(lambda: run_plain(MC.mont_mul_chain_plain, x, CHAIN_K))
     err = check(f"montmul_chain n={CHAIN_N} k={CHAIN_K}", MC.mont_mul_chain_kernel(x, CHAIN_K), plain)
+    ragged = random_mont(CHAIN_RAGGED_N, gen, dev)
+    err = max(err, check(f"montmul_chain n={CHAIN_RAGGED_N} k={CHAIN_RAGGED_K}",
+                         MC.mont_mul_chain_kernel(ragged, CHAIN_RAGGED_K),
+                         run_plain(MC.mont_mul_chain_plain, ragged, CHAIN_RAGGED_K)))
+    del ragged
     probe_vals = (2, 3, L.P - 1)
     probe = L.ints_to_mont(probe_vals, dev)
     for k in (CHAIN_K, CHAIN_K_LONG):
@@ -1743,20 +1731,36 @@ def montmul_chain_phase(dev, int_rate: float) -> dict:
     k_ms = time_ms(lambda: MC.mont_mul_chain_kernel(x, CHAIN_K))
     long_ms = time_ms(lambda: MC.mont_mul_chain_kernel(x, CHAIN_K_LONG), reps=5, runs=3)
     products = CHAIN_N * CHAIN_K
-    sass = sass_ops_per_product()
+    # the unrolled body's 32 products and the tail's one, of each chain
+    mix = sass_mix(_build.library_path("montmul_chain"), "montmul_chain_kernel", 33 * MC.CHAINS)
     bound = bound_ms(2 * CHAIN_N * 64, products * MONT_MUL_OPS, int_rate)
+    # None where the library was built before this run (no ptxas output)
+    ptxas = (ptxas_report(logs["montmul_chain"], "montmul_chain_kernel")
+             if "montmul_chain" in (logs or {}) else None)
     row = dict(kernel=MC.MONTMUL_CHAIN_KERNEL, source="zk_stark_tpu_torch/csrc/montmul_chain.cu",
                launches=launches, max_abs_err=err, shape=f"n={CHAIN_N},k={CHAIN_K}",
                ms=k_ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
-               ops_per_product=MONT_MUL_OPS, sass_ops_per_product=sass,
-               ns_per_product=k_ms * 1e6 / products,
+               chains_a_thread=MC.CHAINS, ragged_n=CHAIN_RAGGED_N, ptxas=ptxas,
+               ops_per_product=MONT_MUL_OPS, sass_ops_per_product=mix["ops"],
+               sass_imad_per_product=mix["imad"], sass_other_per_product=mix["other"],
+               sass_by_opcode=mix["by_opcode"],
+               ceiling_sass_ms=products * mix["ops"] / int_rate * 1e3,
+               ns_per_product=k_ms * 1e6 / products, ms_long=long_ms,
+               bound_ms_long=bound_ms(2 * CHAIN_N * 64, CHAIN_N * CHAIN_K_LONG * MONT_MUL_OPS,
+                                      int_rate)[0],
+               ceiling_sass_ms_long=CHAIN_N * CHAIN_K_LONG * mix["ops"] / int_rate * 1e3,
                ns_per_product_long=long_ms * 1e6 / (CHAIN_N * CHAIN_K_LONG))
-    print(f"montmul_chain n={CHAIN_N} k={CHAIN_K}: bit-exact, x^(k+1) at k={CHAIN_K} and "
-          f"{CHAIN_K_LONG}; kernel {k_ms:.4f} ms "
-          f"({row['ns_per_product']:.6f} ns/product; {row['ns_per_product_long']:.6f} at "
-          f"k={CHAIN_K_LONG}), plain {p_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}, "
-          f"{MONT_MUL_OPS} instructions/product), {sass:.2f} SASS instructions/product as "
-          f"compiled, launches {launches}", flush=True)
+    print(f"montmul_chain n={CHAIN_N} k={CHAIN_K}: bit-exact (and n={CHAIN_RAGGED_N} "
+          f"k={CHAIN_RAGGED_K}), x^(k+1) at k={CHAIN_K} and {CHAIN_K_LONG}; {MC.CHAINS} chains a "
+          f"thread; kernel {k_ms:.4f} ms ({row['ns_per_product']:.6f} ns/product), "
+          f"{long_ms:.4f} ms at k={CHAIN_K_LONG} ({row['ns_per_product_long']:.6f}), plain "
+          f"{p_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}, {MONT_MUL_OPS} "
+          f"instructions/product; {row['bound_ms_long']:.6f} at k={CHAIN_K_LONG}), "
+          f"{mix['ops']:.2f} SASS instructions/product as compiled ({mix['imad']:.2f} IMAD, "
+          f"{mix['other']:.2f} other; ceiling {row['ceiling_sass_ms']:.6f} / "
+          f"{row['ceiling_sass_ms_long']:.6f} ms), ptxas {ptxas}, launches {launches}", flush=True)
+    print(f"montmul_chain SASS by opcode a product: "
+          f"{json.dumps({op: round(v, 3) for op, v in mix['by_opcode'].items()})}", flush=True)
     return row
 
 
@@ -2148,7 +2152,7 @@ def main() -> int:
     dist_result = dist_phase(dev, chain_kernels)
     long_ntt = long_ntt_phase(dev, int_rate, logs)
     variants = probe_phase(dev)
-    mm = montmul_chain_phase(dev, int_rate)
+    mm = montmul_chain_phase(dev, int_rate, logs)
     comp = compress_phase(dev, int_rate)
     rescue = rescue_phase(dev, int_rate, mm["ns_per_product"], mm["sass_ops_per_product"], logs)
     toolkit = toolkit_phase(dev)
@@ -2191,7 +2195,7 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "source": row["source"],
-            "replaces": k.replaces,
+            "replaces": row.get("replaces", k.replaces),
             "launches": row["launches"],
             "launches_rpsss_sign": main["launches"].get(k.name, 0),
             "launches_dist_sign": dist_result["sign_launches"].get(k.name, 0),

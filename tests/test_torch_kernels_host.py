@@ -37,7 +37,7 @@ from zk_stark_tpu_torch.ops import rescue_ops as R
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "zk_stark_tpu_torch" / "csrc"
 F = Field()
 
-_HARNESS = r"""
+_PRELUDE = r"""
 #include <stdint.h>
 #include <condition_variable>
 #include <mutex>
@@ -82,27 +82,11 @@ template <class T> static T __shfl_sync(unsigned, T v, int src, int width) {
   b.wait();
   return r;
 }
-#include "ntt.cu"
+"""
+#: the variants of the stage-variant probe alone, with the launch runners
+_VARIANT_HARNESS = r"""
 #include "ntt_variants.cu"
-Fe4 sh[1 << 13];
-#include "fold.cu"
-#include "blake2b.cu"
-#include "rescue.cu"
-uint32_t rescue_smem[1 << 14];
-#include "montmul_chain.cu"
-#include "limbs.cu"
-#include "batch_inv.cu"
-longlong2 leaf_smem[1 + 4 * 64];
-longlong2 fold_smem[1 << 12];
-longlong2 node_smem[1 << 12];
-longlong2 limbs_smem[1 << 12];
-longlong2 batch_inv_smem[3 * 32 + 1];
-
-extern "C" void host_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n) {
-  for (int i = 0; i < n; ++i)
-    zk::store_fe(out + 8 * i, zk::mont_mul(zk::load_fe(a + 8 * i), zk::load_fe(b + 8 * i)));
-}
-
+Fe4 sh[1 << 14];
 static void grid(unsigned blocks) {
   blockDim.x = 1; threadIdx.x = 0; blockIdx.y = blockIdx.z = 0; (void)blocks;
   block_barrier.count = 1;
@@ -122,6 +106,67 @@ template <class F> static void run_block(unsigned threads, F body) {
     ts.emplace_back([=] { threadIdx.x = t; threadIdx.y = threadIdx.z = 0; body(); });
   for (auto& th : ts) th.join();
 }
+// one launch of the probe's variant b, c or d with ntt_launch's arguments:
+// b and c on ntt.cu's grid of tiles, d on `blocks` resident blocks
+extern "C" void host_variant(char which, const int64_t* x, int64_t* y, const uint32_t* tw,
+                             int log2n, int gx, int gy, int gz, long long ibx, long long iby,
+                             long long ibz, long long ie, long long obx, long long oby,
+                             long long obz, long long oe, int dim, int log2_count,
+                             int in_tmajor, int out_tmajor, int threads, int blocks) {
+  int g[3] = {gx, gy, gz};
+  const Tile tile{dim, log2_count, g[dim], in_tmajor, out_tmajor};
+  g[dim] = (g[dim] + (1 << log2_count) - 1) >> log2_count;
+  if (which == 'd') { g[0] = blocks; g[1] = g[2] = 1; }
+  grid(g[0]);
+  gridDim.x = g[0];
+  const Strides in{ibx, iby, ibz, ie}, out{obx, oby, obz, oe};
+  for (int bz = 0; bz < g[2]; ++bz)
+    for (int by = 0; by < g[1]; ++by)
+      for (int bx = 0; bx < g[0]; ++bx) {
+        blockIdx.x = bx; blockIdx.y = by; blockIdx.z = bz;
+        run_block(threads, [=] {
+          if (which == 'b') ntt_variant_b(x, y, tw, log2n, in, out, tile);
+          if (which == 'c') ntt_variant_c(x, y, tw, log2n, in, out, tile);
+          if (which == 'd') ntt_variant_d(x, y, tw, log2n, in, out, tile);
+        });
+      }
+}
+"""
+#: the chained product alone, with its runner
+_CHAIN_HARNESS = r"""
+#include "montmul_chain.cu"
+// a grid of `blocks` blocks of `threads` threads (no barriers: each thread
+// runs alone)
+extern "C" void host_chain(const int64_t* x, int64_t* y, int n, int k, int blocks, int threads) {
+  gridDim.x = blocks;
+  blockDim.x = threads;
+  blockIdx.y = blockIdx.z = 0;
+  for (int b = 0; b < blocks; ++b)
+    for (int t = 0; t < threads; ++t) {
+      blockIdx.x = b; threadIdx.x = t;
+      montmul_chain_kernel(x, y, n, k);
+    }
+}
+"""
+_HARNESS = _PRELUDE + _VARIANT_HARNESS + _CHAIN_HARNESS + r"""
+#include "ntt.cu"
+#include "fold.cu"
+#include "blake2b.cu"
+#include "rescue.cu"
+uint32_t rescue_smem[1 << 14];
+#include "limbs.cu"
+#include "batch_inv.cu"
+longlong2 leaf_smem[1 + 4 * 64];
+longlong2 fold_smem[1 << 12];
+longlong2 node_smem[1 << 12];
+longlong2 limbs_smem[1 << 12];
+longlong2 batch_inv_smem[3 * 32 + 1];
+
+extern "C" void host_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n) {
+  for (int i = 0; i < n; ++i)
+    zk::store_fe(out + 8 * i, zk::mont_mul(zk::load_fe(a + 8 * i), zk::load_fe(b + 8 * i)));
+}
+
 extern "C" void host_ntt(const int64_t* x, int64_t* y, const uint32_t* tw, const uint32_t* ft,
                          int log2n, int gx, int gy, int gz, long long ibx, long long iby,
                          long long ibz, long long ie, long long obx, long long oby,
@@ -140,16 +185,6 @@ extern "C" void host_ntt(const int64_t* x, int64_t* y, const uint32_t* tw, const
                             Strides{obx, oby, obz, oe}, tile);
         });
       }
-}
-extern "C" void host_variant(char which, const int64_t* x, int64_t* y, const uint32_t* tw,
-                             int log2n, int c) {
-  grid(c);
-  for (int b = 0; b < c; ++b) {
-    blockIdx.x = b;
-    if (which == 'a') ntt_variant_a(x, y, tw, log2n, c);
-    if (which == 'b') ntt_variant_b(x, y, tw, log2n, c);
-    if (which == 'c') ntt_variant_c(x, y, tw, log2n, c);
-  }
 }
 // a persistent grid of `blocks` blocks of `threads` threads over tiles of
 // `tile` outputs (tile <= threads)
@@ -215,10 +250,6 @@ extern "C" void host_rescue(const int64_t* st, int64_t* out, const int64_t* mds,
     case 8: rescue_blocks<8>(st, out, mds, rc, n, rounds, alpha, alpha_inv, threads); break;
   }
 }
-extern "C" void host_chain(const int64_t* x, int64_t* y, int n, int k) {
-  grid(n);
-  for (int i = 0; i < n; ++i) { blockIdx.x = i; montmul_chain_kernel(x, y, n, k); }
-}
 // a persistent grid of `blocks` blocks of `threads` threads over tiles of
 // `tile` elements (at most 2 a thread), the plan as the launcher makes it
 extern "C" void host_limbs(int op, const int64_t* a, const int64_t* b, int64_t* out, int64_t n,
@@ -268,30 +299,40 @@ extern "C" void host_inv(const int64_t* a, int64_t* out, int64_t n, int blocks) 
 """
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def _compile(out, harness, include_dirs):
+    """Build ``harness`` with the host C++ compiler into ``out`` and load it
+    (``include_dirs`` searched in order for the sources it includes)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to emulate the CUDA sources with")
-    out = tmp_path_factory.mktemp("kernels_host")
     src = out / "harness.cpp"
-    src.write_text(_HARNESS)
+    src.write_text(harness)
     so = out / "libharness.so"
     subprocess.run(
         [cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
-         f"-I{CSRC}", "-o", str(so), str(src)],
+         *[f"-I{d}" for d in include_dirs], "-o", str(so), str(src)],
         check=True, capture_output=True, timeout=120,
     )
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+def _variant_argtypes(lib):
+    lib.host_variant.argtypes = ([ctypes.c_char] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                                 + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 6)
+    return lib
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    lib = _variant_argtypes(_compile(tmp_path_factory.mktemp("kernels_host"), _HARNESS, [CSRC]))
     lib.host_ntt.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
                              + [ctypes.c_int] * 5)
-    lib.host_variant.argtypes = [ctypes.c_char] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     lib.host_compress.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
     words = ctypes.POINTER(ctypes.c_uint32)
     lib.host_rescue.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                                 + [words, ctypes.c_int, words, ctypes.c_int, ctypes.c_int])
     lib.host_mont_mul.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    lib.host_chain.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+    lib.host_chain.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
     index = ctypes.POINTER(ctypes.c_int64)
     lib.host_limbs.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                                + [ctypes.c_int64, ctypes.c_int] + [index] * 4
@@ -620,18 +661,84 @@ def test_limb_kernel_source(lib, limb_values, op, layout):
                                           np.asarray(jax_fn(*chunk)))
 
 
+#: the probe's variant launches on the emulated source: n -> (transforms,
+#: the TILE_ELEMS that gives tiles of 2 transforms, threads a block); d's
+#: resident blocks
+VARIANT_SHAPES = {8: (5, 16, 3), 64: (5, 128, 5), 1024: (3, 1 << 11, 6)}
+VARIANT_D_BLOCKS = 2
+
+
+def _variant_source(lib, which, x, root):
+    """The launch variant_kernel makes on the card (ntt.kernel_passes' one
+    pass, ntt_variants.variant_block's block), run through the emulated
+    source: a is ntt.cu itself."""
+    n, c = x.shape[0], x.shape[1]
+    threads = VARIANT_SHAPES[n][2]
+    if which == "a":
+        return _ntt_source(lib, x, root, threads=threads)[0]
+    (p,) = N.kernel_passes(n, c, root)
+    blk = V.variant_block(which, p)
+    tw = V.variant_table(which, root, n, "cpu")
+    y = torch.full_like(x, -1)
+    lib.host_variant(which.encode(), *_ptrs(x, y, tw), n.bit_length() - 1, *p.grid, *p.ins,
+                     *p.outs, blk.dim, blk.log2_count, int(blk.in_tmajor), int(blk.out_tmajor),
+                     threads, VARIANT_D_BLOCKS)
+    return y
+
+
 @pytest.mark.parametrize("which", V.VARIANTS)
 @pytest.mark.parametrize("n", [8, 64, 1024])
-def test_ntt_variant_sources(lib, which, n):
-    """The probe's three stage kernels on 3 transforms of bit-reversed rows
-    equal the plain stages (and so each other)."""
-    c = 3
+def test_ntt_variant_sources(lib, monkeypatch, which, n):
+    """The probe's four stage kernels (a is ntt.cu's) on natural rows, in
+    tiles of 2 transforms of which the last holds one (d: tiles of one
+    transform at 1024), with blocks of 3 to 6 threads, d's tiles walked by
+    2 resident blocks and streamed in 1, 2 and 4 slices (n = 8, 64, 1024),
+    equal the plain transform of each column and so each other."""
+    c, tile_elems, _ = VARIANT_SHAPES[n]
+    monkeypatch.setattr(N, "TILE_ELEMS", tile_elems)
     root = F.primitive_nth_root(n).value
     x = _rand_mont(n + 3, n * c).reshape(n, c, L.NLIMB)
-    tw = V.stage_major_table(root, n, "cpu") if which == "b" else N._twiddles_u32(root, n, "cpu")
-    y = torch.empty_like(x)
-    lib.host_variant(which.encode(), *_ptrs(x, y, tw), n.bit_length() - 1, c)
-    assert torch.equal(y, V.stages_plain(x, root))
+    (p,) = N.kernel_passes(n, c, root)
+    blk = V.variant_block(which, p)
+    tiles = -(-c >> blk.log2_count)
+    assert tiles >= 2 and (c % (1 << blk.log2_count) or blk.log2_count == 0)
+    if which == "d":
+        assert tiles > VARIANT_D_BLOCKS and blk.threads == V.D_THREADS
+        assert (1 << blk.log2_count) * n <= V.D_TILE_ELEMS
+    assert torch.equal(_variant_source(lib, which, x, root), V.ntt_columns_plain(x, root))
+
+
+#: mutations of csrc/ntt_variants.cu that test_ntt_variant_sources must
+#: catch: name -> (the variant run, the text, its replacement).  The z
+#: stride in place of an element's; b's table read one stage off; c's
+#: register stages with the next stage's twiddles; d repacking the other raw
+#: slot than the one its slice landed in.
+VARIANT_MUTATIONS = {
+    "z-stride": ("b", "xb + 8 * (t * in_t + i * in.e) + 2 * (c & 3));\n    });",
+                 "xb + 8 * (t * in_t + i * in.bz) + 2 * (c & 3));\n    });"),
+    "b": ("b", "return (1 << s) - 1 + j;", "return (1 << s) + j;"),
+    "c": ("c", "from4(tw4[root(s, j)])", "from4(tw4[root(s + 1, j)])"),
+    "d": ("d", "raw + (j & 1) * size;", "raw + ((j + 1) & 1) * size;"),
+}
+
+
+@pytest.mark.parametrize("mutation", sorted(VARIANT_MUTATIONS))
+def test_ntt_variant_source_mutations(tmp_path, monkeypatch, mutation):
+    """Each mutation of the variants' source, built alone under the same
+    emulation, gives a wrong transform at 1024 points: the check above
+    sees the code it checks."""
+    which, text, repl = VARIANT_MUTATIONS[mutation]
+    src = (CSRC / "ntt_variants.cu").read_text()
+    assert src.count(text) == 1
+    (tmp_path / "ntt_variants.cu").write_text(src.replace(text, repl))
+    harness = _PRELUDE + _VARIANT_HARNESS
+    lib = _variant_argtypes(_compile(tmp_path, harness, [tmp_path, CSRC]))
+    n = 1024
+    c, tile_elems, _ = VARIANT_SHAPES[n]
+    monkeypatch.setattr(N, "TILE_ELEMS", tile_elems)
+    root = F.primitive_nth_root(n).value
+    x = _rand_mont(n + 3, n * c).reshape(n, c, L.NLIMB)
+    assert not torch.equal(_variant_source(lib, which, x, root), V.ntt_columns_plain(x, root))
 
 
 #: (codeword length, tile, blocks, threads) of the emulated fold launches:
@@ -760,11 +867,45 @@ def test_compress_kernel_source(lib):
     assert torch.equal(oh, want_h) and torch.equal(ol, want_l)
 
 
-@pytest.mark.parametrize("k", [32, 37])
-def test_montmul_chain_kernel_source(lib, k):
-    x = _rand_mont(6, 64)
-    y = torch.empty_like(x)
-    lib.host_chain(*_ptrs(x, y), 64, k)
+#: (n, k, blocks, threads, chains a thread) of the emulated chain launches:
+#: the launcher's grid (one block: n below one block's groups), a grid
+#: smaller than the groups (threads stride over them), and in builds of 2
+#: and 4 chains a thread (the shape probe's, kChains) an n that is a
+#: multiple of neither (its last group masked), below one block
+CHAIN_GRIDS = {"32": (64, 32, 1, 128, None), "37": (64, 37, 3, 4, None),
+               "ragged-n-2-chains": (4 * 4 + 1, 33, 2, 3, 2),
+               "ragged-n-4-chains": (4 * 4 + 2, 32, 1, 128, 4),
+               "below-one-block": (5, 32, 1, 128, None)}
+
+
+@pytest.fixture(scope="module")
+def chain_builds(tmp_path_factory):
+    """The emulated chained product built with 2 and 4 chains a thread."""
+    src = (CSRC / "montmul_chain.cu").read_text()
+    piece = f"constexpr int kChains = {MC.CHAINS};"
+    assert src.count(piece) == 1
+    libs = {}
+    for chains in (2, 4):
+        out = tmp_path_factory.mktemp(f"chain{chains}")
+        (out / "montmul_chain.cu").write_text(
+            src.replace(piece, f"constexpr int kChains = {chains};"))
+        libs[chains] = _compile(out, _PRELUDE + _CHAIN_HARNESS, [out, CSRC])
+        libs[chains].host_chain.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+    return libs
+
+
+@pytest.mark.parametrize("case", list(CHAIN_GRIDS))
+def test_montmul_chain_kernel_source(lib, chain_builds, case):
+    """x^(k+1) by k chained products against the plain chain, with the
+    package's chains a thread (MC.CHAINS) or another build's; the unrolled
+    body (k = 32) and its tail (k = 33, 37)."""
+    n, k, blocks, threads, chains = CHAIN_GRIDS[case]
+    if chains is not None:
+        assert n % chains
+        lib = chain_builds[chains]
+    x = _rand_mont(6, n)
+    y = torch.full_like(x, -1)
+    lib.host_chain(*_ptrs(x, y), n, k, blocks, threads)
     assert torch.equal(y, MC.mont_mul_chain_plain(x, k))
 
 

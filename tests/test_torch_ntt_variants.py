@@ -1,7 +1,7 @@
 """The NTT stage-variant probe's plain version against the JAX package's
 transform, and the probe's control flow on the CPU.
 
-The three kernels run only on the card, where the probe
+The four kernels run only on the card, where the probe
 (``zk_stark_tpu_torch.tools.ntt_variant_probe``, driven by chip_smoke.py)
 holds them against the same plain version and ``ntt_kernel``; their
 arithmetic is checked here by tests/test_torch_kernels_host.py.
@@ -19,7 +19,6 @@ from zk_stark_tpu_torch.ops import limbs as L
 from zk_stark_tpu_torch.ops import ntt as N
 from zk_stark_tpu_torch.ops import ntt_variants as V
 from zk_stark_tpu_torch.tools import ntt_variant_probe as probe
-from zk_stark_tpu_torch.utils.bits import bit_reverse_indices
 
 F = Field()
 
@@ -33,19 +32,20 @@ def _rand(seed, count):
 
 @pytest.mark.parametrize("n", [16, 64])
 def test_plain_stages_match_jax(n):
-    """The stages of [n, 4, 8] bit-reversed rows equal, column by column,
-    the JAX package's ntt_mont of the un-permuted rows; bit-identical limbs."""
+    """The plain version on [n, 4, 8] natural rows equals, column by column,
+    the JAX package's ntt_mont of each column (the JAX probe's result on its
+    un-permuted rows); bit-identical limbs.  Every variant is that plain
+    version on the CPU."""
     c = 4
     vals = _rand(n, n * c)
     root = F.primitive_nth_root(n).value
     x = L.ints_to_mont(vals, "cpu").reshape(n, c, L.NLIMB)
-    got = V.stages_plain(x, root).numpy().astype(np.uint32)
+    got = V.ntt_columns_plain(x, root).numpy().astype(np.uint32)
     jx = np.asarray(JL.ints_to_mont(vals)).reshape(n, c, L.NLIMB)
-    brev = bit_reverse_indices(n)
     for b in range(c):
-        assert np.array_equal(got[:, b], np.asarray(JN.ntt_mont(jx[brev, b], root)))
+        assert np.array_equal(got[:, b], np.asarray(JN.ntt_mont(jx[:, b], root)))
     for which in V.VARIANTS:
-        assert torch.equal(V.variant_stages(which, x, root), V.stages_plain(x, root))
+        assert torch.equal(V.variant_ntt(which, x, root), V.ntt_columns_plain(x, root))
 
 
 def test_stage_major_table():
@@ -62,20 +62,21 @@ def test_stage_major_table():
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     x = L.ints_to_mont(range(16 * 2), "cpu").reshape(16, 2, L.NLIMB)
     root = F.primitive_nth_root(16).value
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        V.variant_kernel("a", x, root)
+    for which in V.VARIANTS:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            V.variant_kernel(which, x, root)
     with pytest.raises(ValueError, match="unknown variant"):
-        V.variant_stages("d", x, root)
+        V.variant_ntt("e", x, root)
     with pytest.raises(ValueError, match="power of two"):
-        V.variant_stages("c", x[:4], root)
+        V.variant_ntt("d", x[:4], root)
 
 
 def test_probe_on_the_cpu():
-    """The probe's checks on the CPU (every variant is the plain version
-    there, nothing is timed); on the card it runs by default and raises
-    without one."""
+    """The probe's checks on the CPU, d included (every variant is the
+    plain version there, nothing is timed); on the card it runs by default
+    and raises without one."""
     result = probe.run(n=16, c=4, device="cpu")
-    assert result == {w: {"max_abs_err": 0} for w in V.VARIANTS}
+    assert result == {w: {"max_abs_err": 0} for w in ("a", "b", "c", "d")}
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -33,7 +33,9 @@
 // transform's elements are contiguous.  Each thread repacks its chunk to a
 // word in shared memory (TileLayout, ntt_stages.cuh: padded and swizzled
 // against bank conflicts); the stages of all the tile's transforms are one
-// block-stride loop.
+// block-stride loop.  The tile's walks and its stages are ntt_stages.cuh's
+// (load_tile, store_tile, stages_shared), which the stage-variant probe's
+// kernels (ntt_variants.cu) share.
 //
 // Bound: each stage does n/2 Montgomery products (field.cuh: 64
 // instructions) and 2 modular add/sub on data that never leaves shared
@@ -49,34 +51,6 @@
 
 #include "ntt_stages.cuh"
 
-// element offsets of transform (bx, by, bz) and of element i within it
-struct Strides {
-    long long bx, by, bz, e;
-};
-
-// a block's tile: 2^log2_count transforms along grid index dim (0, 1, 2 for
-// x, y, z) of extent transforms in all; input and output chunks walked
-// transform-major (1) or element-major (0)
-struct Tile {
-    int dim, log2_count, extent, in_tmajor, out_tmajor;
-};
-
-__device__ __forceinline__ long long dim_stride(const Strides& s, int dim) {
-    return dim == 0 ? s.bx : (dim == 1 ? s.by : s.bz);
-}
-
-// transform t and element i of the tile's chunk e (of 16-byte chunks / 4)
-__device__ __forceinline__ void tile_index(int e, bool tmajor, int log2n, int log2_count,
-                                           int& t, int& i) {
-    if (tmajor) {
-        t = e & ((1 << log2_count) - 1);
-        i = e >> log2_count;
-    } else {
-        t = e >> log2n;
-        i = e & ((1 << log2n) - 1);
-    }
-}
-
 // x, y: int64 limbs (Montgomery) laid out by the strides; tw: [n/2, 4]
 // uint32 words of root^k (Montgomery), k < n/2, stage s using
 // root^(j * n / 2^(s+1)); ft: nullptr, or [extent along x, n, 4] words.
@@ -87,55 +61,35 @@ extern "C" __global__ void __launch_bounds__(1024) ntt_stages_kernel(
     int log2n, Strides in, Strides out, Tile tile) {
     extern __shared__ Fe4 sh[];
     const int n = 1 << log2n;
-    // the tile's first transform (scalars, not an array indexed by
-    // tile.dim, which would live in local memory)
-    const int sx = tile.dim == 0 ? tile.log2_count : 0;
-    const int sy = tile.dim == 1 ? tile.log2_count : 0;
-    const int sz = tile.dim == 2 ? tile.log2_count : 0;
-    const long long ix = (long long)blockIdx.x << sx, iy = (long long)blockIdx.y << sy,
-                    iz = (long long)blockIdx.z << sz;
-    const long long left = tile.extent - (tile.dim == 0 ? ix : (tile.dim == 1 ? iy : iz));
-    const int count = left < (1 << tile.log2_count) ? (int)left : 1 << tile.log2_count;
-    const int64_t* xb = x + 8 * (ix * in.bx + iy * in.by + iz * in.bz);
-    int64_t* yb = y + 8 * (ix * out.bx + iy * out.by + iz * out.bz);
+    const TileAt a = tile_at(tile, blockIdx.x, blockIdx.y, blockIdx.z);
+    const int count = a.count;
+    const int64_t* xb = tile_base(x, in, a);
+    int64_t* yb = tile_base(y, out, a);
     const long long in_t = dim_stride(in, tile.dim), out_t = dim_stride(out, tile.dim);
     const TileLayout at{log2n};
     uint32_t* words = reinterpret_cast<uint32_t*>(sh);
-    const int chunks = n << (tile.log2_count + 2);
 
-    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
-        int t, i;
-        tile_index(c >> 2, tile.in_tmajor, log2n, tile.log2_count, t, i);
-        if (t >= count) continue;
-        const longlong2 v = *reinterpret_cast<const longlong2*>(
+    load_tile(words, log2n, tile.log2_count, tile.in_tmajor, count, at,
+              [&](int c, int t, int i) {
+        return *reinterpret_cast<const longlong2*>(
             xb + 8 * (t * in_t + i * in.e) + 2 * (c & 3));
-        words[4 * at(t, (int)bit_reverse((unsigned)i, log2n)) + (c & 3)] =
-            (uint32_t)v.x | ((uint32_t)v.y << 16);
-    }
+    });
     __syncthreads();
-    stages_shared(sh, reinterpret_cast<const Fe4*>(tw), log2n, 0, count, at);
+    stages_shared(sh, reinterpret_cast<const Fe4*>(tw), log2n, 0, count, at, RootIndex{log2n});
 
     if (ft) {
         const Fe4* ft4 = reinterpret_cast<const Fe4*>(ft);
         for (int e = threadIdx.x; e < count * n; e += blockDim.x) {
             const int t = e >> log2n, k = e & (n - 1);
-            const long long bx = tile.dim == 0 ? ix + t : ix;
+            const long long bx = tile.dim == 0 ? a.ix + t : a.ix;
             const int p = at(t, k);
             sh[p] = to4(zk::mont_mul(from4(sh[p]), from4(ft4[bx * n + k])));
         }
         __syncthreads();
     }
 
-    for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
-        int t, i;
-        tile_index(c >> 2, tile.out_tmajor, log2n, tile.log2_count, t, i);
-        if (t >= count) continue;
-        const uint32_t w = words[4 * at(t, i) + (c & 3)];
-        longlong2 v;
-        v.x = (long long)(w & 0xFFFFu);
-        v.y = (long long)(w >> 16);
-        *reinterpret_cast<longlong2*>(yb + 8 * (t * out_t + i * out.e) + 2 * (c & 3)) = v;
-    }
+    store_tile(reinterpret_cast<longlong2*>(yb), out_t, out.e, words, log2n, tile.log2_count,
+               tile.out_tmajor, count, at);
 }
 
 #ifdef __CUDACC__

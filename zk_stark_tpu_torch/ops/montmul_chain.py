@@ -5,7 +5,8 @@ Counterpart of the JAX bench's calibration kernel (``bench.py:202``,
 computes nothing the prover needs; it exists to be timed, as the yardstick
 that prices the Rescue kernel's measured-rate ceiling in ``chip_smoke.py``.
 
-On a CUDA tensor :func:`mont_mul_chain` launches ``csrc/montmul_chain.cu``;
+On a CUDA tensor :func:`mont_mul_chain` launches ``csrc/montmul_chain.cu``
+(:data:`CHAINS` elements' chains a thread, a grid the card holds at once);
 on a CPU tensor it runs :func:`mont_mul_chain_plain`, k calls of
 ``limbs.mont_mul_plain``.
 """
@@ -13,6 +14,7 @@ on a CPU tensor it runs :func:`mont_mul_chain_plain`, k calls of
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
@@ -25,6 +27,16 @@ MONTMUL_CHAIN_KERNEL = _build.Kernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     replaces="bench.py:202 (kern)",
 )
+
+
+def chains() -> int:
+    """The elements' chains a thread of the kernel carries (``kChains`` in
+    ``csrc/montmul_chain.cu``, its one compile-time value)."""
+    src = (_build.CSRC / "montmul_chain.cu").read_text()
+    return int(re.search(r"constexpr int kChains = (\d+);", src).group(1))
+
+
+CHAINS = chains()
 
 
 def mont_mul_chain_plain(x: torch.Tensor, k: int = 32) -> torch.Tensor:

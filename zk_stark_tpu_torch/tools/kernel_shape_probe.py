@@ -47,7 +47,18 @@ and where a pass of ``csrc/ntt.cu`` spends its time:
   of everything but the root), or whose scans branch around the products
   of the lanes with nothing to multiply: each build's registers and
   spills and its time at 1, 284, 1024 and 2^18 elements in the default
-  shape, queued.
+  shape, queued;
+- ``montmul_chains``: ``csrc/montmul_chain.cu`` built with 1, 2 and 4
+  elements' chains a thread (``kChains``): each build's registers and
+  spills, its compiled instructions a product (multiply-adds and the
+  rest) and its time at k = 32 and 1024 on 2^18 elements (each result bit
+  for bit the package's build's);
+- ``variant_c_builds``: the stage-variant probe's c at 1024 transforms of
+  1024 points in builds whose launch bounds ask for 2, 3 and 4 blocks of
+  512 threads an SM;
+- ``variant_d_builds``: the stage-variant probe's d at 1024 transforms of
+  1024 points, built to stream a tile in at most 1, 2 or 4 slices, with
+  256, 512 and 1024 threads a block.
 
     python -m zk_stark_tpu_torch.tools.kernel_shape_probe [SECTION ...]
 
@@ -72,7 +83,9 @@ from ..models.rescue_prime import RescuePrime
 from ..ops import _build
 from ..ops import blake2b as B
 from ..ops import limbs as L
+from ..ops import montmul_chain as MC
 from ..ops import ntt as N
+from ..ops import ntt_variants as V
 from ..ops import rescue_ops as R
 from . import measure as M
 
@@ -106,11 +119,12 @@ LEVEL_SPANS = tuple((k, t) for k in (8, 9, 10, 11) for t in (128, 256))
 RESCUE_SIZES = (256, 1 << 14, 1 << 20)
 RESCUE_THREADS = (32, 64, 128, 256)
 
-_STAGES = "    stages_shared(sh, reinterpret_cast<const Fe4*>(tw), log2n, 0, count, at);\n"
-_LOAD = """        const longlong2 v = *reinterpret_cast<const longlong2*>(
+_STAGES = ("    stages_shared(sh, reinterpret_cast<const Fe4*>(tw), log2n, 0, count, at, "
+           "RootIndex{log2n});\n")
+_LOAD = """        return *reinterpret_cast<const longlong2*>(
             xb + 8 * (t * in_t + i * in.e) + 2 * (c & 3));"""
-_STORE = ("        *reinterpret_cast<longlong2*>(yb + 8 * (t * out_t + i * out.e) + "
-          "2 * (c & 3)) = v;")
+_STORE = ("    store_tile(reinterpret_cast<longlong2*>(yb), out_t, out.e, words, log2n, "
+          "tile.log2_count,\n               tile.out_tmajor, count, at);")
 _CARRY = r"""
 #include <stdint.h>
 extern "C" __global__ void carry_kernel(uint32_t* out, uint32_t a, uint32_t b) {
@@ -250,6 +264,18 @@ BATCH_INV_BUILDS = {
     "scan with branches": (_BINV_SCAN, _BINV_SCAN_BRANCHES, True),
 }
 BATCH_INV_BUILD_SIZES = (1, 284, 1024, 1 << 18)
+#: the chained product's builds (elements' chains a thread, kChains), its
+#: elements and chain lengths (chip_smoke.py phase 8's)
+CHAIN_COUNTS = (1, 2, 4)
+CHAIN_N, CHAIN_KS = 1 << 18, (32, 1024)
+#: each build's masked tail, held against the plain chain
+CHAIN_RAGGED_N, CHAIN_RAGGED_K = (1 << 12) + 3, 33
+#: variant d's builds (most slices a tile, launch bounds) and threads a
+#: block, at the probe's 1024 transforms of 1024 points
+D_BUILDS = ((1, "1024"), (2, "1024"), (4, "1024"), (4, "512, 3"), (4, "512, 4"))
+D_THREADS = (256, 512, 1024)
+#: variant c's blocks of 512 threads an SM that its launch bounds ask for
+C_BLOCKS = (2, 3, 4)
 
 
 def _build_variant(name: str, source: str) -> ctypes.CDLL:
@@ -271,6 +297,7 @@ def _build_variant(name: str, source: str) -> ctypes.CDLL:
         log = done.stdout + done.stderr
     lib = ctypes.CDLL(str(so))
     lib.ptxas = log
+    lib.path = so
     return lib
 
 
@@ -314,8 +341,8 @@ def ntt_split(dev, gen) -> list:
             raise RuntimeError("ntt_split: csrc/ntt.cu no longer has the statement to remove")
     variants = {
         "memory_only": src.replace(_STAGES, "").replace("    if (ft) {", "    if (ft && tile.extent < 0) {"),
-        "stages_only": src.replace(_LOAD, "        longlong2 v; v.x = c; v.y = t + i;")
-                          .replace(_STORE, "        if (tile.extent < 0) " + _STORE.strip()),
+        "stages_only": src.replace(_LOAD, "        longlong2 v; v.x = c; v.y = t + i; return v;")
+                          .replace(_STORE, "    if (tile.extent < 0) " + _STORE.strip()),
     }
     libs = {"full": _build.load("ntt")}
     libs.update({k: _build_variant(f"ntt_{k}", v) for k, v in variants.items()})
@@ -629,6 +656,146 @@ def batch_inv_builds(dev, gen) -> list:
     return rows
 
 
+def montmul_chains(dev, gen) -> list:
+    """csrc/montmul_chain.cu built with 1, 2 and 4 chains a thread: each
+    build's registers and spills, its compiled instructions a product by
+    pipe, and its time at k = 32 and 1024 on 2^18 elements (each result
+    bit for bit the package's build's; 4099 elements at k = 33, a multiple
+    of no chain count, bit for bit the plain chain's)."""
+    src = (_build.CSRC / "montmul_chain.cu").read_text()
+    piece = f"constexpr int kChains = {MC.CHAINS};"
+    if piece not in src:
+        raise RuntimeError("montmul_chains: csrc/montmul_chain.cu no longer has its kChains")
+    stream = _build.stream_ptr(dev)
+    x = _random(CHAIN_N, gen, dev)
+    y = torch.empty_like(x)
+    refs = {k: MC.mont_mul_chain_kernel(x, k) for k in CHAIN_KS}
+    # an n that is a multiple of no chain count: each build's masked tail
+    ragged = x[:CHAIN_RAGGED_N]
+    ragged_ref = MC.mont_mul_chain_plain(ragged, CHAIN_RAGGED_K)
+    rows = []
+    for chains in CHAIN_COUNTS:
+        lib = _build_variant(f"montmul_chain_c{chains}",
+                             src.replace(piece, f"constexpr int kChains = {chains};"))
+        fn = lib.montmul_chain_launch
+        fn.argtypes, fn.restype = MC.MONTMUL_CHAIN_KERNEL.argtypes, ctypes.c_int
+
+        def call(k, n=CHAIN_N):
+            rc = fn(x.data_ptr(), y.data_ptr(), n, k, stream)
+            if rc:
+                raise RuntimeError(f"montmul_chains: {chains} chains failed to launch: error {rc}")
+
+        call(CHAIN_RAGGED_K, CHAIN_RAGGED_N)
+        if not torch.equal(y[:CHAIN_RAGGED_N], ragged_ref):
+            raise RuntimeError(f"montmul_chains: {chains} chains differ from the plain chain at "
+                               f"n={CHAIN_RAGGED_N}")
+        mix = M.sass_mix(lib.path, "montmul_chain_kernel", 33 * chains)
+        row = dict(chains=chains, ptxas=M.ptxas_report(lib.ptxas, "montmul_chain_kernel"),
+                   sass_ops=mix["ops"], sass_imad=mix["imad"], sass_other=mix["other"])
+        for k in CHAIN_KS:
+            call(k)
+            if not torch.equal(y, refs[k]):
+                raise RuntimeError(f"montmul_chains: {chains} chains differ at k={k}")
+            row[f"k={k}"] = M.time_ms(lambda: call(k), **(dict(reps=5, runs=3) if k > 32 else {}))
+        rows.append(row)
+        print(f"montmul_chain {chains} chains a thread ({row['ptxas']}; SASS a product "
+              f"{mix['ops']:.2f}: {mix['imad']:.2f} IMAD, {mix['other']:.2f} other): "
+              + ", ".join(f"{k} {row[f'k={k}']:.4f} ms" for k in CHAIN_KS), flush=True)
+    return rows
+
+
+def variant_d_builds(dev, gen) -> list:
+    """The stage-variant probe's d (ops/ntt_variants.py) at 1024 transforms
+    of 1024 points, built streaming each tile in 1, 2 or 4 slices at most
+    (kMaxSlices: one slice is a whole raw tile a slot, 160 KB of shared
+    memory and one block an SM; four, 64 KB and three) and with launch
+    bounds that ask for 3 or 4 blocks of 512 threads an SM, with 256, 512
+    and 1024 threads a block where the bounds allow (each result bit for
+    bit ntt_kernel's)."""
+    src = (_build.CSRC / "ntt_variants.cu").read_text()
+    piece, bounds_piece = "constexpr int kMaxSlices = 4;", "__launch_bounds__(1024) ntt_variant_d("
+    if piece not in src or bounds_piece not in src:
+        raise RuntimeError("variant_d_builds: csrc/ntt_variants.cu no longer has d's kMaxSlices "
+                           "or launch bounds")
+    n = c = 1024
+    x = _random(n * c, gen, dev).reshape(n, c, L.NLIMB)
+    root = Field().primitive_nth_root(n).value
+    ref = N.ntt_kernel(x, root)
+    (p,) = N.kernel_passes(n, c, root)
+    tw = V.variant_table("d", root, n, str(dev))
+    y = torch.empty_like(x)
+    rows = []
+    for slices, bounds in D_BUILDS:
+        tag = hashlib.sha256(f"{slices} {bounds}".encode()).hexdigest()[:8]
+        lib = _build_variant(f"ntt_variants_d{tag}",
+                             src.replace(piece, f"constexpr int kMaxSlices = {slices};")
+                                .replace(bounds_piece, f"__launch_bounds__({bounds}) ntt_variant_d("))
+        fn = lib.ntt_variant_d_launch
+        fn.argtypes, fn.restype = V.VARIANT_KERNELS["d"].argtypes, ctypes.c_int
+        for threads in [t for t in D_THREADS if t <= int(bounds.split(",")[0])]:
+            blk = V.variant_block("d", p)._replace(threads=threads)
+
+            def call():
+                rc = fn(x.data_ptr(), y.data_ptr(), tw.data_ptr(), n.bit_length() - 1, *p.grid,
+                        *p.ins, *p.outs, blk.dim, blk.log2_count, threads, int(blk.in_tmajor),
+                        int(blk.out_tmajor), _build.stream_ptr(dev))
+                if rc:
+                    raise RuntimeError(f"variant_d_builds: {slices} slices, {threads} threads "
+                                       f"failed to launch: error {rc}")
+
+            call()
+            if not torch.equal(y, ref):
+                raise RuntimeError(f"variant_d_builds: {slices} slices, {threads} threads differ")
+            rows.append(dict(slices=slices, bounds=bounds, threads=threads, ms=M.time_ms(call),
+                             ptxas=M.ptxas_report(lib.ptxas, "ntt_variant_d")))
+            print(f"ntt_variant_d n={n} c={c} slices={slices} bounds ({bounds}) threads={threads} "
+                  f"({rows[-1]['ptxas']}): {rows[-1]['ms']:.4f} ms", flush=True)
+    return rows
+
+
+def variant_c_builds(dev, gen) -> list:
+    """The stage-variant probe's c at 1024 transforms of 1024 points in
+    builds whose launch bounds ask for 2 (as it is: 64 registers), 3 and 4
+    blocks of 512 threads an SM (42 and 32 registers): each build's
+    registers and spills and its time (each result bit for bit
+    ntt_kernel's)."""
+    src = (_build.CSRC / "ntt_variants.cu").read_text()
+    piece = "__launch_bounds__(1024) ntt_variant_c("
+    if piece not in src:
+        raise RuntimeError("variant_c_builds: csrc/ntt_variants.cu no longer has c's bounds")
+    n = c = 1024
+    x = _random(n * c, gen, dev).reshape(n, c, L.NLIMB)
+    root = Field().primitive_nth_root(n).value
+    ref = N.ntt_kernel(x, root)
+    (p,) = N.kernel_passes(n, c, root)
+    blk = V.variant_block("c", p)
+    tw = V.variant_table("c", root, n, str(dev))
+    y = torch.empty_like(x)
+    rows = []
+    for blocks in C_BLOCKS:
+        bounds = "1024" if blocks == 2 else f"{blk.threads}, {blocks}"
+        lib = _build_variant(f"ntt_variants_c{blocks}",
+                             src.replace(piece, f"__launch_bounds__({bounds}) ntt_variant_c("))
+        fn = lib.ntt_variant_c_launch
+        fn.argtypes, fn.restype = V.VARIANT_KERNELS["c"].argtypes, ctypes.c_int
+
+        def call():
+            rc = fn(x.data_ptr(), y.data_ptr(), tw.data_ptr(), n.bit_length() - 1, *p.grid,
+                    *p.ins, *p.outs, blk.dim, blk.log2_count, blk.threads, int(blk.in_tmajor),
+                    int(blk.out_tmajor), _build.stream_ptr(dev))
+            if rc:
+                raise RuntimeError(f"variant_c_builds: bounds {bounds} failed to launch: {rc}")
+
+        call()
+        if not torch.equal(y, ref):
+            raise RuntimeError(f"variant_c_builds: bounds {bounds} differ")
+        rows.append(dict(bounds=bounds, ms=M.time_ms(call),
+                         ptxas=M.ptxas_report(lib.ptxas, "ntt_variant_c")))
+        print(f"ntt_variant_c n={n} c={c} launch bounds ({bounds}) ({rows[-1]['ptxas']}): "
+              f"{rows[-1]['ms']:.4f} ms", flush=True)
+    return rows
+
+
 SECTIONS = {
     "carry_flag": lambda dev, gen: carry_flag(dev),
     "rescue_blocks": rescue_blocks,
@@ -640,6 +807,9 @@ SECTIONS = {
     "root_inverse": root_inverse,
     "batch_inv_shapes": batch_inv_shapes,
     "batch_inv_builds": batch_inv_builds,
+    "montmul_chains": montmul_chains,
+    "variant_c_builds": variant_c_builds,
+    "variant_d_builds": variant_d_builds,
 }
 
 

@@ -22,7 +22,11 @@ the card, since one launch a level takes longer on the host than on the
 card), and ``ops.rescue_ops.permutation_kernel`` on 256, 2^14 and 2^20
 random states of width 2, and of widths 3 and 4 where the checkout's
 kernel takes them (``KERNEL_MAX_M``; unqueued, 3 of 3 runs of 3 calls at
-2^20).  Prints the card line and one JSON line; needs a card.
+2^20), ``ops.ntt.ntt_kernel`` on one column of 4096 and of 2^20 points and
+on 1024 columns of 1024 (the stage-variant probe's shape), and
+``ops.montmul_chain.mont_mul_chain_kernel`` on 2^18 elements at k = 32 and
+1024 (unqueued, 3 of 3 runs of 5 calls at 1024).  Prints the card line and
+one JSON line; needs a card.
 """
 
 from __future__ import annotations
@@ -54,6 +58,8 @@ def main() -> int:
     from zk_stark_tpu_torch.ops import blake2b as B
     from zk_stark_tpu_torch.ops import fold as FO
     from zk_stark_tpu_torch.ops import limbs as L
+    from zk_stark_tpu_torch.ops import montmul_chain as MC
+    from zk_stark_tpu_torch.ops import ntt as N
     from zk_stark_tpu_torch.ops import rescue_ops as R
     from zk_stark_tpu_torch.tools.measure import card_line, time_ms
 
@@ -145,6 +151,17 @@ def main() -> int:
             out["rescue"][f"m={width}"][n] = time_ms(
                 lambda: R.permutation_kernel(state, mds, rc, rp.N, rp.alpha, rp.alpha_inv),
                 reps=reps, runs=runs)
+    out["ntt"] = {}
+    for n, cols in ((1 << 12, 1), (1 << 20, 1), (1 << 10, 1 << 10)):
+        x = field(n * cols).reshape(n, cols, L.NLIMB)
+        root = Field().primitive_nth_root(n).value
+        out["ntt"][f"{n}x{cols}"] = timed(lambda: N.ntt_kernel(x, root), n * cols)
+        del x
+    chain = field(1 << 18)
+    out["montmul_chain"] = {
+        k: time_ms(lambda: MC.mont_mul_chain_kernel(chain, k), **({} if k == 32 else
+                                                                  dict(reps=5, runs=3)))
+        for k in (32, 1024)}
     torch.cuda.synchronize()
     print(f"card: {card_line()}")
     print(json.dumps(out))

@@ -8,7 +8,9 @@ that reads the card needs one.
 
 from __future__ import annotations
 
+import collections
 import re
+import shutil
 import statistics
 import subprocess
 
@@ -35,8 +37,7 @@ def mont_mul_ops() -> int:
     shape, 10 for the conditional subtraction of p).  A multiply-add with
     carry, an add with carry, a subtract with borrow, a compare and a select
     is one instruction each.  The same count for every kernel's bound; the
-    compiled code's count is a separate diagnostic
-    (``chip_smoke.sass_ops_per_product``).
+    compiled code's count is a separate diagnostic (:func:`sass_mix`).
     """
     src = (_build.CSRC / "field.cuh").read_text()
     block = src[src.index("// mont_mul PTX begin"):src.index("// mont_mul PTX end")]
@@ -48,6 +49,54 @@ def mont_mul_ops() -> int:
 #: 4 selects and flags)
 MONT_MUL_OPS = mont_mul_ops()
 ADD_SUB_OPS = 16
+
+
+#: SASS opcodes that are not the arithmetic of a product: memory, control,
+#: special-register reads
+NON_ARITH = {"LDG", "STG", "LD", "ST", "LDS", "STS", "LDL", "STL", "LDC", "ULDC",
+             "BRA", "EXIT", "BAR", "NOP", "RET", "CALL", "BSSY", "BSYNC",
+             "WARPSYNC", "JMP", "S2R", "S2UR", "CS2R"}
+
+
+def sass_mix(library, function: str, bodies: int) -> dict:
+    """The compiled instructions of ``function`` (in the shared library
+    ``library``, read with ``cuobjdump -sass``) per product body, for a
+    kernel whose code is ``bodies`` Montgomery products and little else:
+    ``ops`` every instruction but memory, control and special-register reads
+    (moves, the loads' repacking and the loop are counted too); ``imad``
+    the integer multiply-adds (``IMAD*``, issued to the FMA pipe) and
+    ``other`` the rest of ``ops`` (the integer ALU pipe's adds, logic,
+    shifts, selects, ...); ``by_opcode`` each opcode's count.  A diagnostic
+    of the code generation beside :data:`MONT_MUL_OPS`, never a bound."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run(
+        [tool, "-sass", "-fun", function, str(library)],
+        check=True, capture_output=True, text=True, timeout=120,
+    ).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", out)
+    if len(ops) <= bodies * 40:
+        raise RuntimeError(f"SASS of {function}: only {len(ops)} instructions for {bodies} "
+                           "product bodies")
+    arith = [op for op in ops if op.split(".")[0] not in NON_ARITH]
+    imad = sum(op.startswith("IMAD") for op in arith)
+    return {"ops": len(arith) / bodies, "imad": imad / bodies,
+            "other": (len(arith) - imad) / bodies,
+            "by_opcode": {op: k / bodies
+                          for op, k in collections.Counter(arith).most_common()}}
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """The registers, spill bytes (stores and loads) and stack frame that
+    ptxas's ``-v`` output ``log`` gives ``kernel``."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if line.rstrip().endswith(f"Function properties for {kernel}"):
+            props = lines[i + 1]
+            regs = next(ln for ln in lines[i + 2:] if "Used" in ln and "registers" in ln)
+            return {"registers": int(re.search(r"Used (\d+) registers", regs).group(1)),
+                    "spill_bytes": sum(int(v) for v in re.findall(r"(\d+) bytes spill", props)),
+                    "stack_bytes": int(re.search(r"(\d+) bytes stack frame", props).group(1))}
+    raise RuntimeError(f"ptxas printed no properties for {kernel}")
 
 
 def card_line() -> str:
