@@ -88,16 +88,20 @@ runs (run_plain):
    and 6 again, now replaying (no new capture); then the caches cleared;
 7d. (run right after 7a) the distributed engine (zk_stark_tpu_torch/parallel) over NCCL at
    world size 1 (a FileStore in a temporary directory): DistEngine ntt,
-   intt, batch_inv and fold_round bit for bit against the single engine
-   at 512, 4096 and 2^20, ntt_dist / intt_dist at the same sizes (one
-   all-to-all each); both fixtures through the engine; the default-config
-   sign and the chain prove at 3200 byte for byte against the single
-   engine's from the same rng, each verified by the engine-free verifier;
-   the warm distributed sign and chain prove with the launch counts and
-   the collectives reset just before and read just after (every kernel of
-   the path launched, the elementwise inversion not at all, no segment
-   replayed: the distributed segments run eagerly), beside the single
-   engine's warm times; then the group destroyed and the caches cleared;
+   intt, batch_inv, fold_round, combine and move on blocks bit for bit
+   against the same rows of the single engine at 512, 4096 and 2^20 (a
+   transform three all-to-alls), ntt_dist / intt_dist at the same sizes
+   (one all-to-all each); both fixtures through the engine; the
+   default-config sign and the chain prove at 3200 byte for byte against
+   the single engine's from the same rng, each verified by the engine-free
+   verifier; the warm distributed sign and chain prove with the launch
+   counts, the Python kernel calls and the collectives (by kind, with the
+   bytes they handed the rank and their largest result) reset just before
+   and read just after (every kernel of the path launched, the elementwise
+   inversion not at all, two segments replayed with their NCCL
+   collectives inside, the collectives counted at every replay), beside
+   the single engine's warm times and the card's name and power limit;
+   then the group destroyed and the caches cleared;
 7b. the long transforms: ntt_mont and intt_mont at 2^21, 2^22, 2^24 (the
    four-step) and 2^25 (the three-pass split), then one low-degree
    extension (fast_coset_evaluate: 2^23 coefficients on a 2^25-point
@@ -1091,13 +1095,19 @@ def dist_phase(dev, kernels) -> dict:
     try:
         require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}, not nccl")
         eng = dist_engine(1)
-        require(eng.is_distributed and not eng.captures_segments and DEFAULT.captures_segments,
-                "the distributed engine captures its segments, or the single one does not")
+        require(eng.is_distributed and eng.captures_segments and DEFAULT.captures_segments,
+                "the distributed engine does not capture its segments over NCCL")
         ops = DR.check_engine_ops(eng, DIST_SIZES, dev)
+        for n, by_op in ops.items():
+            for op in ("ntt", "intt"):
+                require(by_op[op]["collectives"]["all_to_all"] == 3
+                        and by_op[op]["collectives"]["all_gather"] == 0,
+                        f"DistEngine.{op} n={n} issued {by_op[op]['collectives']}")
         ntt = DR.check_ntt_dist(DIST_SIZES, dev)
-        print(f"dist ops: DistEngine ntt/intt/batch_inv/fold_round bit-exact against the "
-              f"single engine at {list(DIST_SIZES)}, collectives {json.dumps(ops)}; ntt_dist/"
-              f"intt_dist round trips {json.dumps(ntt)}", flush=True)
+        print(f"dist ops: DistEngine ntt/intt/batch_inv/fold_round/combine/move on blocks "
+              f"bit-exact against the single engine's rows at {list(DIST_SIZES)}, "
+              f"collectives {json.dumps(ops)}; ntt_dist/intt_dist round trips "
+              f"{json.dumps(ntt)}", flush=True)
 
         sig = DR.sign(eng, meta["config"], meta["document"], "zk-stark-fixture", dev)
         require(bytes.fromhex(sig["proof"]) == (fixtures / "signature.bin").read_bytes(),
@@ -1118,13 +1128,15 @@ def dist_phase(dev, kernels) -> dict:
             return out, (time.perf_counter() - t0) * 1e3
 
         def counted(fn):
-            """fn() with every kernel's launches, the collectives and the
-            replays counted from just before to just after."""
+            """fn() with every kernel's launches, the collectives (by kind,
+            with their bytes and largest result), the replays and the
+            Python kernel calls counted from just before to just after."""
             for k in kernels:
                 k.launches = 0
-            before, replays = collectives.counts(), segments.replays
-            out, ms = timed(fn)
-            issued = {k: v - before[k] for k, v in collectives.counts().items()}
+            replays, calls = segments.replays, python_calls()
+            with collectives.record() as tally:
+                out, ms = timed(fn)
+            issued = dict(DR.tally_json(tally), python_kernel_calls=python_calls() - calls)
             return out, ms, {k.name: k.launches for k in kernels}, issued, \
                 segments.replays - replays
 
@@ -1163,9 +1175,11 @@ def dist_phase(dev, kernels) -> dict:
         # split over the ranks: none at world size 1
         check_path_launches("distributed sign", sign_launches, SIGN_BATCH_INV_SIZES,
                             may_skip=(N.NTT_TW_KERNEL.name,))
-        require(sign_replays == 0 and sign["single"][5] == 2,
+        require(sign_replays == 2 and sign["single"][5] == 2,
                 f"a distributed sign replayed {sign_replays} segments, a single one "
-                f"{sign['single'][5]} (0 and 2 expected)")
+                f"{sign['single'][5]} (2 and 2 expected)")
+        require(sign_issued["collectives"]["all_to_all"] > 0,
+                "the distributed sign's replays counted no all-to-all")
 
         model, stark = make_chain_stark(Field(), CHAIN_LENGTH, device=dev)
         air = model.air(stark.omicron, stark.omicron_domain_length)
@@ -1192,23 +1206,27 @@ def dist_phase(dev, kernels) -> dict:
         require(not rejects(stark, air, boundary, proof), "the distributed chain proof rejected")
         check_path_launches("distributed chain prove", chain_launches, CHAIN_BATCH_INV_SIZES,
                             may_skip=(N.NTT_TW_KERNEL.name,))
-        require(chain_replays == 0 and chain["single"][5] == 2,
+        require(chain_replays == 2 and chain["single"][5] == 2,
                 f"a distributed chain prove replayed {chain_replays} segments, a single one "
-                f"{chain['single'][5]} (0 and 2 expected)")
+                f"{chain['single'][5]} (2 and 2 expected)")
+        require(chain_issued["collectives"]["all_to_all"] > 0,
+                "the distributed chain prove's replays counted no all-to-all")
     finally:
-        dist.destroy_process_group()
+        multihost.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
     Stark._SEG_CACHE.clear()
     FRI._LOWDEG_CACHE.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    result = dict(world_size=1, backend="nccl", sizes=list(DIST_SIZES),
+    result = dict(world_size=1, backend="nccl", card=card_line(), sizes=list(DIST_SIZES),
                   sign_ms_single=sign["single"][1], sign_ms_dist=sign["dist"][1],
                   sign_ms_runs_single=sign["single"][2], sign_ms_runs_dist=sign["dist"][2],
                   chain_prove_ms_single=chain["single"][1], chain_prove_ms_dist=chain["dist"][1],
                   chain_prove_ms_runs_single=chain["single"][2],
                   chain_prove_ms_runs_dist=chain["dist"][2],
                   single_sign_replays=sign["single"][5], single_chain_replays=chain["single"][5],
+                  single_sign_python_kernel_calls=sign["single"][4]["python_kernel_calls"],
+                  single_chain_python_kernel_calls=chain["single"][4]["python_kernel_calls"],
                   sign_collectives=sign_issued, chain_collectives=chain_issued,
                   sign_replays=sign_replays, chain_replays=chain_replays,
                   sign_launches=sign_launches, chain_launches=chain_launches,

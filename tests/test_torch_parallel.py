@@ -20,6 +20,7 @@ import torch
 
 from zk_stark_tpu.parallel import engine as jax_engine
 from zk_stark_tpu.parallel import multihost as jax_multihost
+from zk_stark_tpu_torch import segments
 from zk_stark_tpu_torch.carry import DetRng
 from zk_stark_tpu_torch.ops import fold as FO
 from zk_stark_tpu_torch.ops import limbs as L
@@ -37,15 +38,28 @@ CHAIN_PROOF = (FIXTURES / "chain_proof.bin").read_bytes()
 
 SIGN = ("sign", {"config": META["config"], "document": META["document"],
                  "rng_tag": "zk-stark-fixture"})
+CHAIN = ("chain", {"config": CHAIN_META["config"], "input_element": CHAIN_META["input"],
+                   "rng_tag": CHAIN_META["rng_tag"]})
 RANK_RNG_TAG = "dist-rank-rng"
 NTT_SIZES = (64, 512, 4096)
-ENGINE_SIZES = (64, 512)
-#: every collective count a DistEngine operation may issue, by operation
+ENGINE_SIZES = (64, 512, 4096)
+FOUR_RANK_ENGINE_SIZES = (64, 512)
+MERKLE_SIZES = (64, 4096)
+NONE = {"all_to_all": 0, "permute": 0, "all_gather": 0, "broadcast": 0}
+#: every collective a DistEngine operation issues on blocks, by operation: a
+#: transform three all-to-alls (natural rows to columns, the four-step's
+#: own, columns to natural rows) and no all-gather; the inversion nothing;
+#: the fold one permute (the pairs meet); the combination one permute a
+#: shifted term (two of the check's three terms are shifted); a move one
+#: permute, or one all-gather into a length too short to split
 ENGINE_COLLECTIVES = {
-    "ntt": {"all_to_all": 1, "all_gather": 1, "broadcast": 0},
-    "intt": {"all_to_all": 1, "all_gather": 1, "broadcast": 0},
-    "batch_inv": {"all_to_all": 0, "all_gather": 1, "broadcast": 0},
-    "fold_round": {"all_to_all": 0, "all_gather": 1, "broadcast": 0},
+    "ntt": {**NONE, "all_to_all": 3},
+    "intt": {**NONE, "all_to_all": 3},
+    "batch_inv": NONE,
+    "fold_round": {**NONE, "permute": 1},
+    "combine": {**NONE, "permute": 2},
+    "move": {**NONE, "permute": 1},
+    "move_whole": {**NONE, "all_gather": 1},
 }
 
 
@@ -55,7 +69,9 @@ def two_ranks():
     tasks = [
         ("ntt_dist", {"sizes": list(NTT_SIZES)}),
         ("engine_ops", {"sizes": list(ENGINE_SIZES)}),
+        ("merkle", {"sizes": list(MERKLE_SIZES), "queries": 16}),
         SIGN,
+        CHAIN,
         ("rank_rng", {"rng_tag": RANK_RNG_TAG}),
     ]
     results = dryrun_multichip(2, "cpu", tasks, timeout=300)
@@ -65,10 +81,9 @@ def two_ranks():
 @pytest.fixture(scope="module")
 def four_ranks():
     """One spawned run of four ranks."""
-    chain = ("chain", {"config": CHAIN_META["config"], "input_element": CHAIN_META["input"],
-                       "rng_tag": CHAIN_META["rng_tag"]})
     hybrid = ("hybrid_sign", {"ici_parallelism": 2, **SIGN[1]})
-    tasks = [SIGN, chain, hybrid]
+    tasks = [("engine_ops", {"sizes": list(FOUR_RANK_ENGINE_SIZES)}),
+             ("merkle", {"sizes": list(MERKLE_SIZES), "queries": 16}), SIGN, CHAIN, hybrid]
     results = dryrun_multichip(4, "cpu", tasks, timeout=300)
     return [dict(zip([name for name, _ in tasks], r)) for r in results]
 
@@ -173,18 +188,88 @@ def test_ntt_dist_round_trips_with_one_all_to_all(two_ranks):
         for n in NTT_SIZES:
             got = rank["ntt_dist"][str(n)]
             assert (got["n1"], got["n2"]) == four_step_geometry(n)
-            assert got["four_step_collectives"] == {"all_to_all": 1, "all_gather": 0,
-                                                    "broadcast": 0}
+            assert got["four_step_collectives"] == {**NONE, "all_to_all": 1}
+
+
+def _engine_ops_issue_the_budget(ranks, sizes):
+    for rank in ranks:
+        assert rank["engine_ops"]["captures_segments"] is False  # gloo: eager segments
+        for n in sizes:
+            got = rank["engine_ops"][str(n)]
+            assert {op: got[op]["collectives"] for op in got} == ENGINE_COLLECTIVES, n
 
 
 def test_engine_ops_equal_single_engine(two_ranks):
-    """DistEngine.ntt, intt, batch_inv and fold_round equal the single
-    engine bit for bit (checked in the ranks) with the collectives pinned:
-    a transform one all-to-all and one all-gather, the inversion and the
-    fold one all-gather."""
-    for rank in two_ranks:
-        for n in ENGINE_SIZES:
-            assert rank["engine_ops"][str(n)] == ENGINE_COLLECTIVES
+    """DistEngine.ntt, intt, batch_inv, fold_round, combine and move on
+    a rank's block equal the same rows of the single engine's output bit for
+    bit (checked in the ranks) at 64, 512 and 4096 points, with the
+    collectives pinned (:data:`ENGINE_COLLECTIVES`): no operation
+    all-gathers."""
+    _engine_ops_issue_the_budget(two_ranks, ENGINE_SIZES)
+
+
+def test_engine_ops_on_four_ranks(four_ranks):
+    _engine_ops_issue_the_budget(four_ranks, FOUR_RANK_ENGINE_SIZES)
+
+
+@pytest.mark.parametrize("ranks", ["two_ranks", "four_ranks"])
+def test_engine_ops_bytes_within_budget(ranks, request):
+    """A transform of n points hands a rank 3 n/D rows (three all-to-alls of
+    its block); the fold at most n/D (its lo and hi rows of the pairs), the
+    combination at most the shifts' rows, a move at most its block."""
+    results = request.getfixturevalue(ranks)
+    d = len(results)
+    for rank in results:
+        for n in (ENGINE_SIZES if d == 2 else FOUR_RANK_ENGINE_SIZES):
+            got = {op: r["received_bytes"] for op, r in rank["engine_ops"][str(n)].items()
+                   if op != "captures_segments"}
+            assert got["ntt"]["all_to_all"] == got["intt"]["all_to_all"] == 3 * n // d * 64
+            assert got["fold_round"]["permute"] <= n // d * 64
+            assert got["combine"]["permute"] <= (n // 8 + n // 2 + 3) * 64
+            assert got["move"]["permute"] <= n // 2 // d * 64
+            assert got["batch_inv"] == NONE
+
+
+@pytest.mark.parametrize("ranks", ["two_ranks", "four_ranks"])
+def test_blocked_merkle_tree_equals_whole(ranks, request):
+    """A tree over each rank's block has the whole tree's root, leaves and
+    openings (checked in the ranks): one all-gather of the subtree roots to
+    build, one for a batch of openings."""
+    for rank in request.getfixturevalue(ranks):
+        for n in MERKLE_SIZES:
+            got = rank["merkle"][str(n)]
+            assert got["build"] == {**NONE, "all_gather": 1}
+            assert got["openings"] == {**NONE, "all_gather": 1}
+
+
+def test_shutdown_releases_collective_graphs():
+    """A graph that holds NCCL collectives is dropped before its group ends
+    (the group hangs on its destruction while one lives): the segment
+    captures anew at its next call; without a group shutdown does nothing."""
+    seg = segments.Segment("with-collectives", lambda: (), "cpu")
+    seg.graph, seg.launches = object(), {"kernel": 1}
+    segments._with_collectives.add(seg)
+    segments.release_collective_graphs()
+    assert seg.graph is None and seg.launches == {}
+    assert not list(segments._with_collectives)
+    assert not torch.distributed.is_initialized()
+    multihost.shutdown()
+
+
+def test_replays_count_captured_collectives():
+    """A captured segment's collectives are kept apart from the counts and
+    counted at each replay (the card's NCCL segments; here on host events)."""
+    event = ("permute", (0, 1), 3, 192)
+    before = collectives.counts()["permute"]
+    with collectives.capturing() as captured:
+        captured.events.append(event)
+    assert collectives.counts()["permute"] == before
+    with collectives.record() as seen:
+        collectives.replay(captured)
+        collectives.replay(captured)
+    assert seen.counts() == {**NONE, "permute": 2}
+    assert seen.received_bytes()["permute"] == 384 and seen.largest_rows()["permute"] == 3
+    assert collectives.counts()["permute"] == before + 2
 
 
 def test_signature_fixture_on_two_ranks(two_ranks):
@@ -207,9 +292,28 @@ def test_rank_zero_draws_the_randomness(two_ranks):
 # -- four ranks ------------------------------------------------------------------
 
 
+def test_chain_fixture_on_two_ranks(two_ranks):
+    for rank in two_ranks:
+        assert bytes.fromhex(rank["chain"]["proof"]) == CHAIN_PROOF
+
+
 def test_signature_fixture_on_four_ranks(four_ranks):
     for rank in four_ranks:
         assert bytes.fromhex(rank["sign"]["proof"]) == SIGNATURE
+
+
+def test_chain_prove_gathers_no_codeword(four_ranks):
+    """In the 4-rank chain prove (FRI 2^14) no all-gather hands a rank 2^14/4
+    rows or more but the last FRI codeword's, and no collective of any kind
+    hands it a whole FRI-domain codeword."""
+    for rank in four_ranks:
+        chain = rank["chain"]
+        fri_dl = chain["fri_domain_length"]
+        assert fri_dl == 1 << 14
+        big = [r for r in chain["all_gather_rows"] if r >= fri_dl // 4]
+        assert big in ([], [chain["last_codeword_rows"]]), big
+        assert chain["last_codeword_rows"] in chain["all_gather_rows"]
+        assert max(chain["largest_rows"].values()) < fri_dl
 
 
 def test_chain_fixture_on_four_ranks(four_ranks):

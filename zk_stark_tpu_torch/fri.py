@@ -4,6 +4,9 @@ Counterpart of the JAX package's ``fri.py``: identical transcript bytes,
 index sampling and colinearity checks.  Each commit round is one fold (the
 fold kernel on the card, through the engine: ``parallel/engine.py``) and
 one Merkle tree built on the device; only the root crosses to the host.
+Under a distributed engine the codewords stay in the ranks' blocks from
+round to round (the JAX package's "the codeword stays block-sharded"), and
+the last codeword, pushed whole into the transcript, is the one gathered.
 :meth:`FRI.prove` opens every round's queries with one
 :func:`merkle.open_many` (:meth:`FRI.query` opens one round alone).  The
 verifier runs on the host except for the last-codeword check, whose iNTT,
@@ -21,7 +24,7 @@ import torch
 from . import merkle, segments
 from .field import Field
 from .ops import limbs as L
-from .ops.ntt import MAX_KERNEL_N, intt_mont, ntt_mont, powers_mont
+from .ops.ntt import MAX_KERNEL_N, intt_mont, ntt_mont
 from .ops.poly_ops import DPoly, degree_device
 from .parallel.engine import DEFAULT
 from .poly import Polynomial
@@ -132,12 +135,12 @@ class FRI:
         committed = []
         cw, canon = codeword, L.from_mont(codeword)
         last = None
+        n = self.domain_length
         for r in range(num_rounds):
-            n = cw.shape[0]
             assert pow(omega, n - 1, p) == pow(omega, -1, p), (
                 "error in commit: omega does not have the right order"
             )
-            tree = merkle.DeviceMerkleTree(canon)
+            tree = merkle.DeviceMerkleTree(canon, n, self.engine)
             proof_stream.push(Root(tree.root))
 
             if r == num_rounds - 1:
@@ -151,8 +154,8 @@ class FRI:
 
             # a value of this proof: uploaded anew, never cached (int_to_mont)
             ao = L.ints_to_mont([alpha * pow(offset, -1, p) % p], self.device)[0]
-            invpows = powers_mont(pow(omega, -1, p), n // 2, self.device)
-            cw, canon = self.engine.fold_round(cw, invpows, ao, two_inv)
+            cw, canon = self.engine.fold_round(cw, omega, ao, two_inv, n)
+            n //= 2
             omega = omega * omega % p
             offset = offset * offset % p
 
@@ -198,7 +201,8 @@ class FRI:
         return indices_a + indices_b
 
     def prove(self, codeword: torch.Tensor, proof_stream: ProofStream) -> list[int]:
-        assert self.domain_length == codeword.shape[0], (
+        rows = self.engine.rows(self.domain_length)
+        assert rows.stop - rows.start == codeword.shape[0], (
             "domain length does not match initial codeword length"
         )
         committed = self.commit(codeword, proof_stream)

@@ -9,7 +9,9 @@ a one-leaf tree's root is the leaf hash.
 natural order, so the sibling of node ``i`` at every level is ``i ^ 1``.
 Only the 64-byte root crosses to the host when the tree is built;
 :func:`open_many` gathers the values and sibling paths of many queries on
-the device and brings them back with one copy.  The host
+the device and brings them back with one copy.  Under a distributed engine
+a tree over a rank's block of leaves shares its subtree root with the
+other ranks (:class:`DeviceMerkleTree`).  The host
 :class:`MerkleTree` and :func:`verify_int` serve the verifier.
 """
 
@@ -22,6 +24,7 @@ import torch
 
 from .ops import blake2b
 from .ops import limbs as L
+from .parallel import collectives
 from .utils.hashing import blake2b512
 
 
@@ -34,21 +37,36 @@ class DeviceMerkleTree:
     """Merkle tree over a canonical (non-Montgomery) codeword [n, 8], n a
     power of two, hashed on the codeword's device.
 
-    ``levels[0]`` holds the n leaf digests, ``levels[-1]`` the root, each a
-    ``uint8[m, 64]`` tensor in natural order; the inner levels are views of
-    one ``[n - 1, 64]`` buffer (``blake2b.tree_digests``).
+    ``levels[0]`` holds the leaf digests, ``levels[-1]`` the root of the
+    tree the rank built, each a ``uint8[m, 64]`` tensor in natural order;
+    the inner levels are views of one buffer (``blake2b.tree_digests``).
+
+    Under a distributed engine (``parallel/engine.py``) whose blocks split
+    the length n, ``canon`` is the rank's block: the rank hashes its leaves
+    and builds its subtree, one all-gather shares the D subtree roots (D x
+    64 bytes), and every rank hashes the top log2(D) levels (``top``) to the
+    same root.  :func:`open_many` then takes each index's value and lower
+    path from the rank that owns it and the top of its path from ``top``.
     """
 
-    __slots__ = ("n", "canon", "levels", "root")
+    __slots__ = ("n", "canon", "levels", "root", "engine", "top")
 
-    def __init__(self, canon: torch.Tensor):
-        n = int(canon.shape[0])
+    def __init__(self, canon: torch.Tensor, n: int | None = None, engine=None):
+        n = int(canon.shape[0]) if n is None else n
         assert n >= 1 and n & (n - 1) == 0, "leaf count must be a power of two"
         self.n = n
         self.canon = canon
+        #: the distributed engine that holds the leaves in blocks, or None
+        self.engine = engine if engine is not None and engine.splits(n) else None
         leaves = blake2b.leaf_digests(canon)
         self.levels = blake2b.split_levels(leaves, blake2b.tree_digests(leaves))
-        self.root = self.levels[-1][0].cpu().numpy().tobytes()
+        self.top = None
+        root = self.levels[-1]
+        if self.engine is not None:
+            roots = collectives.all_gather(root, self.engine.group)
+            self.top = blake2b.split_levels(roots, blake2b.tree_digests(roots))
+            root = self.top[-1]
+        self.root = root[0].cpu().numpy().tobytes()
 
     def openings(self, indices: Sequence[int]) -> tuple[list[int], list[list[bytes]]]:
         """(values, sibling paths) at ``indices``: one gather, one copy."""
@@ -64,42 +82,85 @@ class DeviceMerkleTree:
         return self.openings(indices)[0]
 
     def all_values(self) -> list[int]:
-        return [int(v) for v in L.limbs_to_ints(self.canon)]
+        """Every leaf's value (gathered from the ranks when in blocks)."""
+        canon = self.canon if self.engine is None else self.engine.gather(self.canon, self.n)
+        return [int(v) for v in L.limbs_to_ints(canon)]
 
 
 def open_many(specs) -> list[tuple[list[int], list[list[bytes]]]]:
     """Open many (tree, indices) queries: every value and sibling digest is
-    gathered on the trees' device and comes back in one copy.  Returns, per
+    gathered on the trees' device and comes back in one copy.  The values
+    and lower paths of trees held in blocks come from the ranks that own
+    their indices, each rank contributing its own rows to one all-gather
+    for every such tree.  Returns, per
     spec, the values and the bottom-up sibling paths."""
     if not specs:
         return []
     device = specs[0][0].canon.device
-    flat_idx, parts = [], []
+    # every row the openings read, in their order: (source uint8[m, 64],
+    # slot of its indices, owned); an owned piece's rows come from the
+    # ranks that own its indices, each rank reading only its own
+    host, pieces, owned_at = [], [], []
+
+    def piece(source, idx, owned=False):
+        host.append(np.asarray(idx, dtype=np.int64))
+        pieces.append((source, len(host) - 1, owned))
+
+    def values_of(tree):
+        return lambda i: tree.canon[i].contiguous().view(torch.uint8).reshape(-1, 64)
+
+    def rows_of(level):
+        return lambda i: level[i]
+
+    engine, packed = None, None
     for tree, indices in specs:
         idx = np.asarray(list(indices), dtype=np.int64)
-        nlev = len(tree.levels) - 1
-        flat_idx.append(idx)
-        flat_idx.extend((idx >> lvl) ^ 1 for lvl in range(nlev))
-    all_idx = torch.from_numpy(np.concatenate(flat_idx)).to(device)
+        if tree.engine is None:
+            piece(values_of(tree), idx)
+            for lvl in range(len(tree.levels) - 1):
+                piece(rows_of(tree.levels[lvl]), (idx >> lvl) ^ 1)
+            continue
+        engine = tree.engine
+        if packed is None:  # rows each rank contributes so far
+            packed = np.zeros(engine.n_devices, dtype=np.int64)
+        size = tree.n // engine.n_devices
+        owner = idx // size
+        local = idx - owner * size
+        # where each index's row lies among its owner's rows of one piece
+        within = np.zeros(len(idx), dtype=np.int64)
+        for q in range(engine.n_devices):
+            within[owner == q] = np.arange(int((owner == q).sum()))
+        mine = local[owner == engine.index]
+        lower = len(tree.levels) - 1
+        for lvl in range(-1, lower):  # the value, then the lower siblings
+            owned_at.append((owner, packed[owner] + within))
+            packed += np.bincount(owner, minlength=engine.n_devices)
+            piece(values_of(tree) if lvl < 0 else rows_of(tree.levels[lvl]),
+                  mine if lvl < 0 else (mine >> lvl) ^ 1, owned=True)
+        for lvl in range(len(tree.top) - 1):
+            piece(rows_of(tree.top[lvl]), (idx >> (lower + lvl)) ^ 1)
+    if owned_at:  # the owned rows' places in the all-gather's result
+        width = int(packed.max())
+        host.append(np.concatenate([q * width + at for q, at in owned_at]))
+    all_idx = torch.from_numpy(np.concatenate(host)).to(device)  # the single upload
+    offsets = np.cumsum([0] + [len(h) for h in host])
 
-    off = 0
-    for tree, indices in specs:
-        k = len(indices)
-        nlev = len(tree.levels) - 1
-        idx = all_idx[off : off + k]
-        off += k
-        # int64 limbs as their 8 little-endian bytes each
-        parts.append(tree.canon[idx].contiguous().view(torch.uint8).reshape(-1))
-        for lvl in range(nlev):
-            sib = all_idx[off : off + k]
-            off += k
-            parts.append(tree.levels[lvl][sib].reshape(-1))
-    flat = torch.cat(parts).cpu().numpy()  # the single device->host copy
+    def slot(j):
+        return all_idx[offsets[j] : offsets[j + 1]]
+
+    rows = [source(slot(j)) for source, j, _ in pieces]
+    if owned_at:
+        mine = torch.cat([r for r, (_, _, owned) in zip(rows, pieces) if owned])
+        mine = torch.cat([mine, mine.new_zeros((width - mine.shape[0], 64))])
+        picked = collectives.all_gather(mine, engine.group)[slot(len(host) - 1)]
+        taken = iter(picked.split([len(at) for _, at in owned_at]))
+        rows = [next(taken) if owned else r for r, (_, _, owned) in zip(rows, pieces)]
+    flat = torch.cat([r.reshape(-1) for r in rows]).cpu().numpy()  # the single device->host copy
 
     results, pos = [], 0
     for tree, indices in specs:
         k = len(indices)
-        nlev = len(tree.levels) - 1
+        nlev = tree.n.bit_length() - 1
         limbs = flat[pos : pos + 64 * k].view(np.int64).reshape(k, L.NLIMB)
         pos += 64 * k
         values = [int(v) for v in L.limbs_to_ints(limbs)]

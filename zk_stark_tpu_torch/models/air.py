@@ -7,10 +7,14 @@ accept any object with:
 * ``degree_bounds(point_degrees)`` — max weighted degree per constraint,
   where ``point_degrees = [1, d, d, ..., d]`` gives weight 1 to the cycle
   variable x and the randomized trace degree d to each register variable;
-* ``evaluate_codewords(point)`` — all constraints evaluated pointwise from
-  per-variable codewords ``point = [x, cur_0..cur_{m-1}, nxt_0..nxt_{m-1}]``
-  (each [N, 8] Montgomery tensors), used by the prover on the FRI coset and
-  by the verifier on the queried points;
+* ``evaluate_codewords(point, engine=None)`` — all constraints evaluated
+  pointwise from per-variable codewords
+  ``point = [x, cur_0..cur_{m-1}, nxt_0..nxt_{m-1}]`` (each [N, 8]
+  Montgomery tensors), used by the prover on the FRI coset and by the
+  verifier on the queried points.  The prover passes its ``engine``
+  (``parallel/engine.py``): its codewords are then the engine's rows of the
+  coset (a rank's block under a distributed engine), and tables over the
+  coset must be taken at the same rows;
 * ``fingerprint()`` — a hashable value that is equal for AIRs that evaluate
   alike (part of the key of the prover's and verifier's cached segments).
 
@@ -57,7 +61,8 @@ class ConstraintSystemAir:
             for tc in self.constraints
         )
 
-    def evaluate_codewords(self, point: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    def evaluate_codewords(self, point: Sequence[torch.Tensor],
+                           engine=None) -> list[torch.Tensor]:
         return [
             mpoly_evaluate_codewords(dict(tc.dictionary), point)
             for tc in self.constraints

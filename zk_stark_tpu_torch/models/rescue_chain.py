@@ -86,14 +86,18 @@ class RescueChainAir:
             ])
         return cache[key]
 
-    def _constant_codewords(self, domain_len: int, offset: int, root: int) -> torch.Tensor:
-        """C1/C2 codewords [2m, domain_len, 8] on the coset (cached per domain)."""
-        key = self.fingerprint() + ("cw", domain_len, offset, root)
+    def _constant_codewords(self, domain_len: int, offset: int, root: int,
+                            engine=None) -> torch.Tensor:
+        """C1/C2 codewords [2m, domain_len, 8] on the coset, or the engine's
+        rows of them (cached per domain and engine)."""
+        key = self.fingerprint() + ("cw", domain_len, offset, root) + (
+            () if engine is None else (engine.cache_key,))
         cache = self.model.const_cache
         if key not in cache:
             coeffs = self._constant_polys()
             cache[key] = torch.stack([
-                fast_coset_evaluate(DPoly(c), offset, root, domain_len) for c in coeffs
+                fast_coset_evaluate(DPoly(c), offset, root, domain_len, engine=engine)
+                for c in coeffs
             ])
         return cache[key]
 
@@ -126,14 +130,17 @@ class RescueChainAir:
             out.append(L.sub_mod(lhs, rhs))
         return out
 
-    def evaluate_codewords(self, point: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    def evaluate_codewords(self, point: Sequence[torch.Tensor],
+                           engine=None) -> list[torch.Tensor]:
         """The constraints pointwise: on the bound FRI coset from the cached
-        constant codewords, elsewhere (the verifier's points) from the
-        constant polynomials."""
+        constant codewords (the prover's ``engine``'s rows of them),
+        elsewhere (the verifier's points) from the constant polynomials."""
         n = point[0].shape[0]
         m = self.model.m
         geometry = self.model.stark_geometry
-        if geometry is not None and n == geometry[0]:
+        if geometry is not None and engine is not None and engine.is_distributed:
+            consts = self._constant_codewords(*geometry, engine)
+        elif geometry is not None and n == geometry[0]:
             consts = self._constant_codewords(*geometry)
         else:
             consts = evaluate_polys_shared(self._constant_polys(), point[0])

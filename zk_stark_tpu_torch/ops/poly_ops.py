@@ -16,7 +16,11 @@ coefficient for coefficient.  Every function runs on the device of its
 inputs; the NTTs go through the kernel on the card.  The functions the
 prover calls take an ``engine`` (``parallel/engine.py``; the single-device
 ``DEFAULT`` when None) for their transforms and inversions, as the JAX
-package's do.
+package's do.  Under a distributed engine a :class:`DPoly` may be held as
+blocks (its ``layout``: the engine's rows of its coefficients zero-padded to
+a length n), and these functions return such polynomials; :func:`laid`
+brings a polynomial, whole or in blocks, to the rows a transform of
+another length takes.
 
 The arbitrary-domain toolkit (:func:`fast_zerofier`,
 :func:`fast_evaluate_domain`, :func:`fast_interpolate_domain`) runs the
@@ -71,13 +75,14 @@ def cumprod_mont(x: torch.Tensor) -> torch.Tensor:
     return L.cumprod_mont_blocked(x)
 
 
-def degree_device(c: torch.Tensor) -> torch.Tensor:
-    """Degree scan on the device: [n, 8] -> int64 scalar, -1 for zero."""
+def degree_device(c: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """Degree scan on the device: [n, 8] -> int64 scalar, -1 for zero.  The
+    rows of ``c`` are coefficients ``start`` onwards (a rank's block)."""
     n = c.shape[0]
     if n == 0:
         return torch.tensor(-1, device=c.device)
     nz = (c != 0).any(dim=-1)
-    idx = torch.arange(n, device=c.device)
+    idx = torch.arange(start, start + n, device=c.device)
     return torch.where(nz, idx, torch.full_like(idx, -1)).amax()
 
 
@@ -91,13 +96,36 @@ class DPoly:
 
     ``degree`` may be given when it is known without looking at the data
     (``None`` for the zero polynomial); otherwise it is scanned on first use.
+
+    ``layout`` is None when ``c`` holds the coefficients whole, or
+    (engine, n) when ``c`` is ``engine.rows(n)`` of the coefficients
+    zero-padded to n: a rank's block under a distributed engine
+    (:meth:`held`).  Such a polynomial scales, truncates, adds and
+    subtracts in place and moves to another length with :meth:`padded`;
+    its degree scan takes one small collective.  ``bound``, when known,
+    is a length past which its coefficients are zero (set by
+    :meth:`truncated`): a move carries no row from it on.
     """
 
-    __slots__ = ("c", "_degree")
+    __slots__ = ("c", "_degree", "layout", "bound")
 
-    def __init__(self, c: torch.Tensor, degree: Optional[int] = "unknown"):
+    def __init__(self, c: torch.Tensor, degree: Optional[int] = "unknown", layout=None,
+                 bound: Optional[int] = None):
         self.c = c
         self._degree = degree
+        self.layout = layout
+        self.bound = bound
+
+    @classmethod
+    def held(cls, c: torch.Tensor, n: int, engine, degree="unknown") -> "DPoly":
+        """``c``, the engine's rows of a length-n coefficient vector: whole
+        under the single engine, in blocks under a distributed one."""
+        return cls(c, degree, (engine, n) if engine.is_distributed else None)
+
+    @property
+    def start(self) -> int:
+        """The index of the first coefficient ``c`` holds."""
+        return 0 if self.layout is None else self.layout[0].rows(self.layout[1]).start
 
     @classmethod
     def from_ints(cls, vals: Sequence[int], device="cuda") -> "DPoly":
@@ -117,11 +145,14 @@ class DPoly:
         return self.c.device
 
     def __len__(self) -> int:
-        return int(self.c.shape[0])
+        return int(self.c.shape[0]) if self.layout is None else self.layout[1]
 
     def degree(self) -> Optional[int]:
         if self._degree == "unknown":
-            d = int(degree_device(self.c))
+            d = degree_device(self.c, self.start)
+            if self.layout is not None:
+                d = self.layout[0].max_over_ranks(d)
+            d = int(d)
             self._degree = None if d < 0 else d
         return self._degree
 
@@ -129,6 +160,12 @@ class DPoly:
         return self.degree() is None
 
     def padded(self, n: int) -> torch.Tensor:
+        """The coefficients zero-padded to n, as held: whole, or (in
+        blocks) the engine's rows of them, which takes one ``permute``
+        when they move between ranks.  Coefficients past n must be zero."""
+        if self.layout is not None:
+            eng, m = self.layout
+            return eng.move(self.c, m, n, [(0, 0, min(m, n, self._bound()))])[0]
         m = self.c.shape[0]
         assert m <= n, f"polynomial of length {m} does not fit order {n}"
         if m == n:
@@ -136,18 +173,47 @@ class DPoly:
         pad = torch.zeros((n - m, L.NLIMB), dtype=L.DTYPE, device=self.c.device)
         return torch.cat([self.c, pad])
 
+    def _bound(self) -> int:
+        return len(self) if self.bound is None else self.bound
+
     def truncated(self, n: int) -> "DPoly":
+        if self.layout is not None:  # zero the block's rows from n on
+            bound = min(n, self._bound())
+            keep = min(max(n - self.start, 0), self.c.shape[0])
+            if keep == self.c.shape[0]:
+                return DPoly(self.c, self._degree, self.layout, bound)
+            c = self.c.clone()
+            c[keep:] = 0
+            return DPoly(c, layout=self.layout, bound=bound)
         if self.c.shape[0] <= n:
             return self
         return DPoly(self.c[:n])
 
+    def _pair(self, other: "DPoly"):
+        """(layout, self's rows, other's rows, bound) of a sum or
+        difference in which at least one side is in blocks; a whole side is
+        constrained."""
+        lay = self.layout or other.layout
+        if self.layout and other.layout and self.layout != other.layout:
+            raise ValueError("DPoly: the two sides are held at different lengths")
+        eng, n = lay
+        a = self.c if self.layout else eng.constrain(self.c, n)
+        b = other.c if other.layout else eng.constrain(other.c, n)
+        return lay, a, b, max(self._bound(), other._bound())
+
     def __add__(self, other: "DPoly") -> "DPoly":
+        if self.layout or other.layout:
+            lay, a, b, bound = self._pair(other)
+            return DPoly(L.add_mod(a, b), layout=lay, bound=bound)
         n = max(len(self), len(other))
         if n == 0:
             return DPoly.zero(self.device)
         return DPoly(L.add_mod(self.padded(n), other.padded(n)))
 
     def __sub__(self, other: "DPoly") -> "DPoly":
+        if self.layout or other.layout:
+            lay, a, b, bound = self._pair(other)
+            return DPoly(L.sub_mod(a, b), layout=lay, bound=bound)
         n = max(len(self), len(other))
         if n == 0:
             return DPoly.zero(self.device)
@@ -160,6 +226,10 @@ class DPoly:
 
     def scale(self, factor_int: int) -> "DPoly":
         """x -> factor*x substitution."""
+        if self.layout is not None:
+            eng, n = self.layout
+            return DPoly(L.mont_mul(self.c, eng.powers(factor_int, n, self.device)),
+                         self._degree, self.layout, self.bound)
         n = len(self)
         if n == 0:
             return self
@@ -218,6 +288,16 @@ def _engine(engine):
     return DEFAULT
 
 
+def laid(poly: DPoly, n: int, engine) -> torch.Tensor:
+    """``poly``'s coefficients zero-padded to n as the engine holds a
+    length-n vector: whole under the single engine, the rank's block under
+    a distributed one (a slice of a whole polynomial, or its blocks moved
+    from their own length)."""
+    if poly.layout is None and engine.is_distributed:
+        return engine.constrain(poly.c, n)
+    return poly.padded(n)
+
+
 def fast_multiply(lhs: DPoly, rhs: DPoly, root_int: int, root_order: int,
                   engine=None) -> DPoly:
     """NTT polynomial product."""
@@ -227,17 +307,19 @@ def fast_multiply(lhs: DPoly, rhs: DPoly, root_int: int, root_order: int,
     degree = lhs.degree() + rhs.degree()
     root, order = _halve_root(degree, root_int, root_order)
     assert degree < order, "product degree exceeds available root order"
-    la = eng.ntt(lhs.truncated(lhs.degree() + 1).padded(order), root)
-    lb = eng.ntt(rhs.truncated(rhs.degree() + 1).padded(order), root)
-    coeffs = eng.intt(L.mont_mul(la, lb), root)
-    return DPoly(coeffs, degree).truncated(degree + 1)
+    la = eng.ntt(laid(lhs.truncated(lhs.degree() + 1), order, eng), root, order)
+    lb = eng.ntt(laid(rhs.truncated(rhs.degree() + 1), order, eng), root, order)
+    coeffs = eng.intt(L.mont_mul(la, lb), root, order)
+    return DPoly.held(coeffs, order, eng, degree).truncated(degree + 1)
 
 
 def fast_coset_evaluate(
     poly: DPoly, offset_int: int, root_int: int, order: int, engine=None
 ) -> torch.Tensor:
-    """Codeword [order, 8] of ``poly`` on the coset ``offset * root^i``."""
-    return _engine(engine).ntt(poly.scale(offset_int).padded(order), root_int)
+    """Codeword [order, 8] of ``poly`` on the coset ``offset * root^i``
+    (the engine's rows of it)."""
+    eng = _engine(engine)
+    return eng.ntt(laid(poly.scale(offset_int), order, eng), root_int, order)
 
 
 def fast_coset_divide(
@@ -269,10 +351,10 @@ def fast_coset_divide(
     lhs = lhs.truncated(lhs_degree + 1)
     rhs = rhs.truncated(rhs_degree + 1)
     eng = _engine(engine)
-    la = eng.ntt(lhs.scale(offset_int).padded(order), root)
-    lb = eng.ntt(rhs.scale(offset_int).padded(order), root)
-    coeffs = eng.intt(L.mont_mul(la, eng.batch_inv(lb)), root)
-    return DPoly(coeffs).truncated(result_len).scale(pow(offset_int, -1, P))
+    la = eng.ntt(laid(lhs.scale(offset_int), order, eng), root, order)
+    lb = eng.ntt(laid(rhs.scale(offset_int), order, eng), root, order)
+    coeffs = eng.intt(L.mont_mul(la, eng.batch_inv(lb)), root, order)
+    return DPoly.held(coeffs, order, eng).truncated(result_len).scale(pow(offset_int, -1, P))
 
 
 # -----------------------------------------------------------------------------
@@ -330,33 +412,41 @@ def zerofier_first_k(root_int: int, n: int, k: int, device) -> DPoly:
 
 def interpolate_first_k(root_int: int, n: int, k: int, values: torch.Tensor,
                         engine=None) -> DPoly:
-    """The unique polynomial of degree < k through ``values`` at the first k
-    powers of w (a primitive n-th root)."""
+    """The unique polynomial of degree < k through ``values`` (whole) at
+    the first k powers of w (a primitive n-th root); under a distributed
+    engine its coefficients are held in blocks of n, each rank computing
+    the rows of its block of every step."""
     eng = _engine(engine)
     assert 0 < k <= n and values.shape[0] == k
     if k == n:
-        return DPoly(eng.intt(values, root_int))
+        return DPoly.held(eng.intt(eng.constrain(values, n), root_int, n), n, eng)
     if k == 1:
         return DPoly(values)
     device = str(values.device)
     zc, zvals = _zerofier_first_k(root_int, n, k, device)
-    zvals = eng.constrain(zvals)
+    zvals = eng.constrain(zvals, n)
+    # this rank holds the rows [lo, hi) of [0, k), at [0, hi - lo) of its block
+    rows = eng.rows(n)
+    lo, hi = min(rows.start, k), min(rows.stop, k)
 
     # Z'(w^i) for i < k: derivative coefficients, evaluated by NTT
     dz = L.mont_mul(zc[1:], _idx_mont(k, device))  # degree k-1, length k
-    dz_vals = eng.ntt(DPoly(dz).padded(n), root_int)[:k]
+    dz_vals = eng.ntt(laid(DPoly(dz), n, eng), root_int, n)[: hi - lo]
 
     # u_i = v_i / Z'(w^i), weighted by w^-i for the convolution kernel
-    u = L.mont_mul(values, L.batch_inv(dz_vals))
-    a = L.mont_mul(u, powers_mont(pow(root_int, -1, P), k, device))
-    a_full = DPoly(a).padded(n)
+    a = values[lo:hi]
+    if hi > lo:
+        u = L.mont_mul(a, L.batch_inv(dz_vals))
+        w_inv = pow(root_int, -1, P)
+        a = L.mont_mul(u, powers_mont(w_inv, hi - lo, device, scale_int=pow(w_inv, lo, P)))
+    a_full = DPoly(a).padded(rows.stop - rows.start)
 
     # S_j = sum_i u_i / (w^j - w^i) as a cyclic convolution with h
-    h_ntt = eng.constrain(_h_table_ntt(root_int, n, device))
-    s = eng.intt(L.mont_mul(eng.ntt(a_full, root_int), h_ntt), root_int)
+    h_ntt = eng.constrain(_h_table_ntt(root_int, n, device), n)
+    s = eng.intt(L.mont_mul(eng.ntt(a_full, root_int, n), h_ntt), root_int, n)
     ivals = L.mont_mul(zvals, s)
-    ivals[:k] = values
-    return DPoly(eng.intt(ivals, root_int)).truncated(k)
+    ivals[: hi - lo] = values[lo:hi]
+    return DPoly.held(eng.intt(ivals, root_int, n), n, eng).truncated(k)
 
 
 # -----------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import json
 import multiprocessing
 import os
 import pathlib
+import statistics
 import tempfile
 import time
 import traceback
@@ -29,17 +30,21 @@ from typing import Callable, Sequence
 import torch
 import torch.distributed as dist
 
+from .. import segments
 from ..carry import DetRng, chain_from_config, rpsss_from_config
 from ..field import Field
+from ..merkle import DeviceMerkleTree, open_many
+from ..models.rescue_chain import make_chain_stark
 from ..models.rescue_prime import RescuePrime
+from ..models.rpsss import RPSSS
 from ..ops import limbs as L
-from ..ops.ntt import ntt_mont, powers_mont
+from ..ops.ntt import ntt_mont
 from ..proof_stream import ProofStream
 from ..stark import Stark
 from . import collectives
 from .engine import DEFAULT, DistEngine, dist_engine, engine_for_hybrid
 from .mesh import block
-from .multihost import DCN_AXIS, hybrid_mesh, initialize
+from .multihost import DCN_AXIS, hybrid_mesh, initialize, shutdown
 from .ntt_dist import (
     flatten_natural,
     four_step_geometry,
@@ -69,11 +74,23 @@ def random_mont(n: int, seed: int, device) -> torch.Tensor:
 
 
 def _counted(fn: Callable, *args):
-    """(fn(*args), the collectives it issued by name)."""
-    before = collectives.counts()
-    out = fn(*args)
-    after = collectives.counts()
-    return out, {k: after[k] - before[k] for k in after}
+    """(fn(*args), the collectives it issued by kind)."""
+    out, tally = _recorded(fn, *args)
+    return out, tally.counts()
+
+
+def _recorded(fn: Callable, *args):
+    """(fn(*args), the :class:`collectives.Tally` of what it issued)."""
+    with collectives.record() as tally:
+        out = fn(*args)
+    return out, tally
+
+
+def tally_json(tally: collectives.Tally) -> dict:
+    """A tally's collectives, received bytes and largest result (rows), by
+    kind."""
+    return {"collectives": tally.counts(), "received_bytes": tally.received_bytes(),
+            "largest_rows": tally.largest_rows()}
 
 
 def check_ntt_dist(sizes: Sequence[int], device, group=None) -> dict:
@@ -91,7 +108,7 @@ def check_ntt_dist(sizes: Sequence[int], device, group=None) -> dict:
         x = random_mont(n, n, device)
         x_local = x.reshape(n1, n2, L.NLIMB)[:, block(n2, n_dev, index)]
         z_local, issued = _counted(ntt_dist, x_local, root, group)
-        require(issued == {"all_to_all": 1, "all_gather": 0, "broadcast": 0},
+        require(issued == {"all_to_all": 1, "permute": 0, "all_gather": 0, "broadcast": 0},
                 f"ntt_dist n={n} issued {issued}")
         tw = twiddle_table(root, n1, n2, n_dev, index, device)
         require(torch.equal(four_step_local(x_local, n1, n2, group, root, tw_local=tw),
@@ -105,9 +122,11 @@ def check_ntt_dist(sizes: Sequence[int], device, group=None) -> dict:
 
 
 def check_engine_ops(engine: DistEngine, sizes: Sequence[int], device) -> dict:
-    """``engine``'s ntt, intt, batch_inv and fold_round on random inputs
-    (the same on every rank) against the single-device engine, bit for
-    bit, with the collectives each issued."""
+    """``engine``'s ntt, intt, batch_inv, fold_round, combine and move on this
+    rank's block of random inputs (the same on every rank) against the same
+    rows of the single-device engine's output, bit for bit, with the
+    collectives each issued, the bytes they handed this rank and their
+    largest result (rows), by kind."""
     field = Field()
     two_inv = L.int_to_mont(pow(2, -1, P), device)
     out = {}
@@ -115,24 +134,59 @@ def check_engine_ops(engine: DistEngine, sizes: Sequence[int], device) -> dict:
         root = field.primitive_nth_root(n).value
         x = random_mont(n, n + 1, device)
         ao = random_mont(1, n + 2, device)[0]
-        invpows = powers_mont(pow(root, -1, P), n // 2, device)
+        # seg2's terms: shorter than n, two of them shifted
+        arrs = [random_mont(n // 4 + j, n + 3 + j, device) for j in range(3)]
+        shifts = [0, n // 8, n // 2 + 3]
+        w = random_mont(len(arrs), n + 6, device)
+        xb, rows, half = engine.constrain(x, n), engine.rows(n), engine.rows(n // 2)
+        whole_comb = DEFAULT.combine(w, arrs, shifts)
+        # rows [3, n/2) of x to the start of a length-n/2 vector; the first
+        # two rows of x as a length-2 vector (whole at D = 2 and 4)
+        moved = torch.cat([x[3 : n // 2], torch.zeros_like(x[:3])])
         cases = {
-            "ntt": (engine.ntt, DEFAULT.ntt, (x, root)),
-            "intt": (engine.intt, DEFAULT.intt, (x, root)),
-            "batch_inv": (engine.batch_inv, DEFAULT.batch_inv, (x,)),
-            "fold_round": (engine.fold_round, DEFAULT.fold_round, (x, invpows, ao, two_inv)),
+            "ntt": (lambda: engine.ntt(xb, root, n), lambda: DEFAULT.ntt(x, root)[rows]),
+            "intt": (lambda: engine.intt(xb, root, n), lambda: DEFAULT.intt(x, root)[rows]),
+            "batch_inv": (lambda: engine.batch_inv(xb), lambda: DEFAULT.batch_inv(x)[rows]),
+            "fold_round": (
+                lambda: torch.stack(engine.fold_round(xb, root, ao, two_inv, n)),
+                lambda: torch.stack(DEFAULT.fold_round(x, root, ao, two_inv))[:, half]),
+            "combine": (
+                lambda: engine.combine(w, [engine.constrain(a, n) for a in arrs], shifts, n),
+                lambda: engine.constrain(whole_comb, n)),
+            "move": (lambda: engine.move(xb, n, n // 2, [(3, 0, n // 2 - 3)])[0],
+                     lambda: engine.constrain(moved, n // 2)),
+            "move_whole": (lambda: engine.move(xb, n, 2, [(0, 0, 2)])[0],
+                           lambda: engine.constrain(x[:2], 2)),
         }
         out[n] = {}
-        for name, (dist_op, single_op, args) in cases.items():
-            got, issued = _counted(dist_op, *args)
-            want = single_op(*args)
-            if name == "fold_round":
-                require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                        f"DistEngine.fold_round n={n} differs from the single engine")
-            else:
-                require(torch.equal(got, want),
-                        f"DistEngine.{name} n={n} differs from the single engine")
-            out[n][name] = issued
+        for name, (dist_op, single_op) in cases.items():
+            got, tally = _recorded(dist_op)
+            require(torch.equal(got, single_op()),
+                    f"DistEngine.{name} n={n} differs from the single engine's rows")
+            out[n][name] = tally_json(tally)
+    return out
+
+
+def check_merkle(engine: DistEngine, sizes: Sequence[int], queries: int, device) -> dict:
+    """For each size, a tree over this rank's block of a random canonical
+    codeword against the tree over the whole one: the same root, the same
+    leaves, and :func:`merkle.open_many` of both (beside a whole tree's
+    queries) gives the same values and paths.  Returns the collectives of
+    the build and of the openings."""
+    out = {}
+    for n in sizes:
+        canon = random_mont(n, 7 * n, device)
+        idx = [int(i) for i in torch.randint(0, n, (queries,),
+                                             generator=torch.Generator().manual_seed(n))]
+        whole = DeviceMerkleTree(canon)
+        blocked, built = _recorded(DeviceMerkleTree, engine.constrain(canon, n), n, engine)
+        require(blocked.root == whole.root, f"merkle n={n}: the roots differ")
+        require(blocked.all_values() == whole.all_values(), f"merkle n={n}: the leaves differ")
+        other = sorted(set(idx))[:3]
+        got, opened = _recorded(open_many, [(blocked, idx), (whole, other)])
+        require(got == open_many([(whole, idx), (whole, other)]),
+                f"merkle n={n}: the openings differ")
+        out[n] = {"build": built.counts(), "openings": opened.counts()}
     return out
 
 
@@ -147,8 +201,8 @@ def sign(engine, config: dict, document: str, rng_tag: str, device) -> dict:
     rpsss = rpsss_from_config(config, device=device, rng=DetRng(rng_tag.encode()))
     sk, pk = rpsss.keygen()
     _with_engine(rpsss.stark, engine)
-    sig, issued = _counted(rpsss.sign, sk, document.encode())
-    return {"proof": sig.hex(), "sk": str(sk), "pk": str(pk), "collectives": issued}
+    sig, tally = _recorded(rpsss.sign, sk, document.encode())
+    return {"proof": sig.hex(), "sk": str(sk), "pk": str(pk), **tally_json(tally)}
 
 
 def prove_chain(engine, config: dict, input_element: str, rng_tag: str, device) -> dict:
@@ -158,8 +212,13 @@ def prove_chain(engine, config: dict, input_element: str, rng_tag: str, device) 
     air = model.air(stark.omicron, stark.omicron_domain_length)
     trace = model.trace(int(input_element))
     boundary = model.boundary_constraints(trace[-1][0])
-    proof, issued = _counted(stark.prove, trace, air, boundary, ProofStream(stark.field))
-    return {"proof": proof.hex(), "collectives": issued}
+    proof, tally = _recorded(stark.prove, trace, air, boundary, ProofStream(stark.field))
+    return {"proof": proof.hex(), "fri_domain_length": stark.fri.domain_length,
+            "last_codeword_rows": stark.fri.domain_length >> (stark.fri.num_rounds() - 1),
+            # the rows of every all-gather's result, the last FRI codeword's among them
+            "all_gather_rows": sorted({rows for kind, _, rows, _ in tally.events
+                                       if kind == "all_gather"}),
+            **tally_json(tally)}
 
 
 def small_statement(device, rng, engine=None):
@@ -188,7 +247,13 @@ def task_ntt_dist(device, sizes) -> dict:
 
 
 def task_engine_ops(device, sizes) -> dict:
-    return check_engine_ops(dist_engine(dist.get_world_size()), sizes, device)
+    engine = dist_engine(dist.get_world_size())
+    return {"captures_segments": engine.captures_segments,
+            **check_engine_ops(engine, sizes, device)}
+
+
+def task_merkle(device, sizes, queries) -> dict:
+    return check_merkle(dist_engine(dist.get_world_size()), sizes, queries, device)
 
 
 def task_sign(device, config, document, rng_tag) -> dict:
@@ -233,14 +298,74 @@ def task_dryrun(device, rng_tag="dryrun") -> dict:
     return {"proof_bytes": len(proof), "collectives": got["collectives"]}
 
 
+def task_timed(device, chain_length, runs=3) -> dict:
+    """Warm default-config signs and chain proves of ``chain_length``
+    under the single engine (every rank alone on its device) and under the
+    distributed one, from the same randomness: byte for byte equal, with
+    each warm run's host wall clock (ms, the device synchronised at its
+    ends), the median, and the first warm distributed run's collectives
+    and segment replays."""
+    engine = dist_engine(dist.get_world_size())
+    rpsss = RPSSS(Field(), device=device, rng=DetRng(b"dist-timed"))
+    sk, _ = rpsss.keygen()
+    model, stark = make_chain_stark(Field(), chain_length, device=device)
+    air = model.air(stark.omicron, stark.omicron_domain_length)
+    trace = model.trace(0x5EED)
+    boundary = model.boundary_constraints(trace[-1][0])
+
+    def sign(eng):
+        rpsss.stark._rng = DetRng(b"dist-timed-sign")
+        _with_engine(rpsss.stark, eng)
+        return rpsss.sign(sk, b"attack at dawn")
+
+    def prove(eng):
+        stark._rng = DetRng(b"dist-timed-chain")
+        _with_engine(stark, eng)
+        return stark.prove(trace, air, boundary, ProofStream(stark.field))
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    out = {"chain_length": chain_length, "fri_domain_length": stark.fri.domain_length}
+    for name, fn in (("sign", sign), ("chain_prove", prove)):
+        proofs, row = {}, {}
+        for label, eng in (("single", DEFAULT), ("dist", engine)):
+            fn(eng)  # cold: the tables, and on the card the captures
+            replays = segments.replays
+            with collectives.record() as tally:
+                proofs[label], first = timed(lambda: fn(eng))
+            replays = segments.replays - replays
+            times = [first] + [timed(lambda: fn(eng))[1] for _ in range(runs - 1)]
+            row[f"{label}_ms"] = statistics.median(times)
+            row[f"{label}_ms_runs"] = times
+            if label == "dist":
+                row.update(tally_json(tally), replays=replays)
+        require(proofs["single"] == proofs["dist"],
+                f"the distributed {name} differs from the single engine's")
+        out[name] = row
+    _with_engine(rpsss.stark, DEFAULT)
+    _with_engine(stark, DEFAULT)
+    return out
+
+
 TASKS: dict[str, Callable[..., dict]] = {
     "ntt_dist": task_ntt_dist,
     "engine_ops": task_engine_ops,
+    "merkle": task_merkle,
     "sign": task_sign,
     "chain": task_chain,
     "rank_rng": task_rank_rng,
     "hybrid_sign": task_hybrid_sign,
     "dryrun": task_dryrun,
+    "timed": task_timed,
 }
 
 
@@ -264,8 +389,7 @@ def run_rank(rank: int, world_size: int, init_file: str, device: str,
         (out / f"rank{rank}.err").write_text(traceback.format_exc())
         raise
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()
 
 
 def dryrun_multichip(world_size: int, device="cuda", tasks=None,
@@ -313,9 +437,47 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("world_size", type=int)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--fixtures", metavar="DIR",
+                        help="also prove the signature and chain fixtures of DIR (meta.json, "
+                             "signature.bin, chain_meta.json, chain_proof.bin) on every rank, "
+                             "and from four ranks on a hybrid mesh of rows of two, each byte for "
+                             "byte")
+    parser.add_argument("--timed", type=int, metavar="CHAIN_LENGTH",
+                        help="also time warm signs and chain proves of CHAIN_LENGTH, the single "
+                             "engine against the distributed one (task_timed)")
+    parser.add_argument("--timeout", type=float, default=600.0)
     args = parser.parse_args(argv)
-    for rank, results in enumerate(dryrun_multichip(args.world_size, args.device)):
-        print(f"rank {rank}: {json.dumps(results)}")
+    tasks, expect = [("dryrun", {})], [None]
+    if args.fixtures:
+        fixtures = pathlib.Path(args.fixtures)
+        meta = json.loads((fixtures / "meta.json").read_text())
+        chain_meta = json.loads((fixtures / "chain_meta.json").read_text())
+        sign_args = {"config": meta["config"], "document": meta["document"],
+                     "rng_tag": "zk-stark-fixture"}
+        tasks += [("sign", sign_args),
+                  ("chain", {"config": chain_meta["config"], "input_element": chain_meta["input"],
+                             "rng_tag": chain_meta["rng_tag"]})]
+        expect += [(fixtures / "signature.bin").read_bytes(),
+                   (fixtures / "chain_proof.bin").read_bytes()]
+        if args.world_size >= 4 and args.world_size % 2 == 0:
+            tasks.append(("hybrid_sign", {"ici_parallelism": 2, **sign_args}))
+            expect.append(expect[1])
+    if args.timed:
+        tasks.append(("timed", {"chain_length": args.timed}))
+        expect.append(None)
+    if args.device == "cuda":  # build once here, not in every rank
+        from ..ops import _build
+
+        _build.build(sorted({k.library for k in _build.Kernel.instances}))
+    for rank, results in enumerate(dryrun_multichip(args.world_size, args.device, tasks,
+                                                    args.timeout)):
+        for (name, _), want, result in zip(tasks, expect, results):
+            proof = result.pop("proof", None)
+            if want is not None:
+                require(bytes.fromhex(proof) == want, f"rank {rank}: the {name} proof differs "
+                        "from its fixture")
+                result["fixture"] = "reproduced"
+            print(f"rank {rank} {name}: {json.dumps(result)}", flush=True)
     return 0
 
 

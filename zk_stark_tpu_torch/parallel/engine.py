@@ -2,30 +2,45 @@
 over the ranks of a process group.
 
 Counterpart of the JAX package's ``parallel/engine.py``.  The prover
-(``stark.py`` seg1 and seg2, ``fri.py`` commit, ``ops/poly_ops.py``) is
-written against this small interface, so the same protocol code runs on
-one device or over several ranks with byte-identical proofs: the
-arithmetic is exact, only where it runs changes.
+(``stark.py`` seg1 and seg2, ``fri.py`` commit, ``merkle.py``,
+``ops/poly_ops.py``) is written against this small interface, so the same
+protocol code runs on one device or over several ranks with byte-identical
+proofs: the arithmetic is exact, only where it runs changes.
 
-:class:`Engine` (``DEFAULT``) calls the port's ops.  :class:`DistEngine`
-runs on every rank of its group, each rank running the same protocol
-code.  Its operations take and return whole ("replicated") tensors that
-every rank holds; each rank computes its share, and collectives
-(:mod:`collectives`) hand the whole result to every rank:
+:class:`Engine` (``DEFAULT``) calls the port's ops on whole tensors.
+:class:`DistEngine` runs on every rank of its group, each rank running the
+same protocol code, and holds every vector whose length splits over the
+ranks (:meth:`DistEngine.splits`, the JAX package's ``_distributable``) as
+**natural blocks**: rank r holds the rows [r n/D, (r+1) n/D) of a length-n
+vector (:meth:`Engine.rows`), the layout the JAX ``DistEngine.constrain``
+pins for GSPMD.  Shorter lengths are held whole on every rank and take the
+single-device ops (the JAX package's replicated fallback: identical
+values).  The blocks are carried explicitly, as plain tensors with the
+global length passed alongside (``n``), not as ``torch.distributed.tensor``
+DTensors: every exchange then goes through :mod:`collectives`, which counts
+it, and the port's kernels need not be registered as aten ops.
 
-* ``ntt`` / ``intt``: the four-step decomposition with one all-to-all
-  (:func:`ntt_dist.four_step_local`), then one all-gather to natural order;
-  lengths that do not tile over the ranks run the single-device transform
-  on every rank (the JAX package's replicated fallback: identical values);
-* ``batch_inv``: each rank inverts its block with the batched-inversion
-  kernel (inversion is elementwise, so each block is exact), one
-  all-gather;
-* ``fold_round``: each rank folds its share of the pairs (k, k + n/2)
-  with the fold kernel, one all-gather;
-* ``combine``: each rank sums its block of rows of seg2's weighted
-  combination, one all-gather;
-* ``draw``: rank 0 draws the prover's random bytes and broadcasts them,
-  so that every rank builds the same randomized trace.
+* ``constrain``: a whole tensor every rank holds -> the rank's block, no
+  collective;
+* ``ntt`` / ``intt``: a block -> a block, three all-to-alls: natural rows to
+  the four-step's columns, the four-step's own (:func:`ntt_dist.four_step_local`),
+  its columns back to natural rows; no all-gather;
+* ``batch_inv``: the block's elements inverted in place (inversion is
+  elementwise), no collective;
+* ``move``: rows of a block moved to the ranks that hold them at another
+  length or position, one ``permute`` (a change of transform length, the
+  combination's shifts);
+* ``fold_round``: the pairs (k, k + n/2) meet on the rank that holds k in
+  the folded codeword's blocks, one ``permute``; the folded codeword and its
+  canonical copy are blocks of n/2;
+* ``combine``: each rank sums the rows of its block of seg2's weighted
+  combination, each shifted term fetching the rows its shift moves in, one
+  ``permute`` a shifted term;
+* ``max_over_ranks`` (the degree scans), ``gather`` (the last FRI codeword)
+  and ``draw`` (rank 0 draws the prover's random bytes and broadcasts them).
+
+On the ``nccl`` backend the prover's segments, collectives included, are
+captured as CUDA graphs (``captures_segments``); on gloo they run eagerly.
 """
 
 from __future__ import annotations
@@ -38,15 +53,15 @@ import torch.distributed as dist
 
 from ..ops import fold as FO
 from ..ops import limbs as L
-from ..ops.ntt import _pad_pow2, intt_mont, ntt_mont
+from ..ops.ntt import _pad_pow2, intt_mont, ntt_mont, powers_mont
 from ..utils.bits import is_pow2, next_pow2
 from . import collectives
 from .mesh import AXIS, block, make_mesh
 from .ntt_dist import (
-    flatten_natural,
+    columns_to_rows,
     four_step_geometry,
     four_step_local,
-    gather_columns,
+    rows_to_columns,
     twiddle_table,
 )
 
@@ -67,33 +82,66 @@ def combine_rows(w: torch.Tensor, term_arrs: Sequence[torch.Tensor], shifts: Seq
     return comb
 
 
+def _zeros(rows: int, device) -> torch.Tensor:
+    return torch.zeros((rows, L.NLIMB), dtype=L.DTYPE, device=device)
+
+
 class Engine:
-    """Single-device engine (the default): the port's ops as they are."""
+    """Single-device engine (the default): the port's ops on whole tensors."""
 
     is_distributed = False
+    n_devices = 1
+    index = 0
     cache_key = ("single",)
     #: the prover's segments are captured as CUDA graphs on the card
     captures_segments = True
 
-    def ntt(self, x: torch.Tensor, root_int: int) -> torch.Tensor:
+    def splits(self, n: int) -> bool:
+        """Whether a length-n vector is held as blocks (never here)."""
+        return False
+
+    def rows(self, n: int) -> slice:
+        """The rows of a length-n vector this rank holds: all of them."""
+        return slice(0, n)
+
+    def constrain(self, x: torch.Tensor, n: int | None = None) -> torch.Tensor:
+        """The identity: the single engine holds every tensor whole."""
+        return x
+
+    def powers(self, base_int: int, n: int, device, scale_int: int = 1) -> torch.Tensor:
+        """The rows :meth:`rows` of ``scale * base^i``, i < n (cached)."""
+        return powers_mont(base_int, n, device, scale_int=scale_int)
+
+    def ntt(self, x: torch.Tensor, root_int: int, n: int | None = None) -> torch.Tensor:
         return ntt_mont(x, root_int)
 
-    def intt(self, x: torch.Tensor, root_int: int) -> torch.Tensor:
+    def intt(self, x: torch.Tensor, root_int: int, n: int | None = None) -> torch.Tensor:
         return intt_mont(x, root_int)
 
     def batch_inv(self, x: torch.Tensor) -> torch.Tensor:
         return L.batch_inv(x)
 
-    def constrain(self, x: torch.Tensor) -> torch.Tensor:
-        return x
-
-    def fold_round(self, cw, invpows, ao, two_inv) -> tuple[torch.Tensor, torch.Tensor]:
+    def fold_round(self, cw, omega_int: int, ao, two_inv,
+                   n: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """One FRI round of the codeword ``cw`` on the coset of ``omega``:
+        (folded, canonical), each [n/2, 8]."""
+        invpows = powers_mont(pow(omega_int, -1, P), cw.shape[0] // 2, cw.device)
         return FO.fold_round(cw, invpows, ao, two_inv)
 
     def combine(self, w: torch.Tensor, term_arrs: Sequence[torch.Tensor],
-                shifts: Sequence[int]) -> torch.Tensor:
+                shifts: Sequence[int], n: int | None = None) -> torch.Tensor:
+        """Seg2's weighted combination, whole (``n`` bounds it and is
+        unused here)."""
         max_len = max(a.shape[0] + sh for a, sh in zip(term_arrs, shifts))
         return combine_rows(w, term_arrs, shifts, 0, max_len)
+
+    def max_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of ``x`` over the ranks: ``x``."""
+        return x
+
+    #: a collective to run on a capture's side stream before the capture
+    #: (none without collectives)
+    warm = None
 
     def draw(self, rng: Callable[[int], bytes], sizes: Sequence[int], device) -> list[bytes]:
         """``rng(n)`` for each n of ``sizes``, in order."""
@@ -107,12 +155,9 @@ class DistEngine(Engine):
     """The engine over the ``n_devices`` ranks of ``group`` (by default
     the 1-D mesh over the first ``n_devices`` global ranks, or over
     ``devices``, a tuple of global ranks).  Every rank of the group calls
-    every operation with the same arguments."""
+    every operation with the same arguments, each with its own block."""
 
     is_distributed = True
-    #: NCCL collectives are not captured into the segments' CUDA graphs yet:
-    #: under this engine the prover's segments run eagerly
-    captures_segments = False
 
     def __init__(self, n_devices: int, devices=None, group=None):
         if not dist.is_initialized():
@@ -132,6 +177,9 @@ class DistEngine(Engine):
         self.index = dist.get_rank(group)
         self.backend = dist.get_backend(group)
         self.cache_key = ("dist", n_devices, self.devices)
+        #: NCCL collectives are captured into the segments' CUDA graphs;
+        #: gloo's (the CPU) run eagerly, as every CPU segment does
+        self.captures_segments = self.backend == "nccl"
 
     def _check(self, x: torch.Tensor) -> None:
         collectives.require_backend(x.device, self.backend)
@@ -143,78 +191,212 @@ class DistEngine(Engine):
         d = self.n_devices
         return n1 % d == 0 and n2 % d == 0
 
-    def constrain(self, x: torch.Tensor) -> torch.Tensor:
-        """The identity.  In the JAX package it pins a flat array to block
-        sharding for GSPMD; here there is no GSPMD, and every operation's
-        result is whole on every rank, so there is nothing to pin (keeping
-        codewords in blocks between the operations is later work)."""
-        return x
+    def splits(self, n: int) -> bool:
+        """Whether a length-n vector is held as blocks: the lengths the
+        four-step tiles over the ranks (the JAX package's ``_distributable``)."""
+        return self._distributable(n)
 
-    def _transform(self, x: torch.Tensor, root_int: int, scale_int: int | None):
-        n = x.shape[0]
+    def rows(self, n: int) -> slice:
+        """This rank's block of a length-n vector, or all of it when n does
+        not split."""
+        return slice(*self._owner_rows(n, self.index))
+
+    def constrain(self, x: torch.Tensor, n: int | None = None) -> torch.Tensor:
+        """The rows :meth:`rows` of the whole ``x`` zero-padded to ``n``
+        (its length by default): a slice, no collective."""
+        n = x.shape[0] if n is None else n
+        if x.shape[0] > n:
+            raise ValueError(f"constrain: {x.shape[0]} rows do not fit a length of {n}")
+        r = self.rows(n)
+        out = x[min(r.start, x.shape[0]) : min(r.stop, x.shape[0])]
+        if out.shape[0] < r.stop - r.start:
+            out = torch.cat([out, _zeros(r.stop - r.start - out.shape[0], x.device)])
+        return out
+
+    def powers(self, base_int: int, n: int, device, scale_int: int = 1) -> torch.Tensor:
+        r = self.rows(n)
+        return powers_mont(base_int, r.stop - r.start, device,
+                           scale_int=scale_int * pow(base_int, r.start, P) % P)
+
+    # -- moving rows between blocks -------------------------------------------
+
+    def _owner_rows(self, n: int, rank: int) -> tuple[int, int]:
+        """The rows [start, stop) of a length-n vector that ``rank`` holds."""
+        if not self.splits(n):
+            return 0, n
+        r = block(n, self.n_devices, rank)
+        return r.start, r.stop
+
+    def move(self, x: torch.Tensor, n_from: int, n_to: int,
+             moves: Sequence[tuple[int, int, int]]) -> list[torch.Tensor]:
+        """For each (src, dst, count) of ``moves``: the rows :meth:`rows`
+        of the length-``n_to`` vector w with w[dst + i] = v[src + i] for
+        i < count and zero elsewhere, ``x`` being this rank's rows of the
+        length-``n_from`` vector v.  Every move in one ``permute`` (none
+        when every row stays on its rank); each rank receives at most its
+        block of each result.  A result whose length does not split is
+        gathered whole (one ``all_gather`` of ``count`` rows a rank)."""
+        self._check(x)
+        dev, me, ranks = x.device, self.index, range(self.n_devices)
+        x0, x1 = self._owner_rows(n_from, me)
+        if x.shape[0] != x1 - x0:
+            raise ValueError(f"move: {x.shape[0]} rows are not this rank's rows of {n_from}")
+        if not self.splits(n_to) and self.splits(n_from):
+            return [self._gather_move(x, n_from, n_to, *m) for m in moves]
+
+        def span(q: int, e: int, src: int, dst: int, count: int) -> tuple[int, int]:
+            """The rows of v that rank q holds and rank e needs."""
+            q0, q1 = self._owner_rows(n_from, q)
+            e0, e1 = self._owner_rows(n_to, e)
+            lo = max(q0, src, e0 - dst + src)
+            hi = min(q1, src + count, e1 - dst + src)
+            return lo, max(lo, hi)
+
+        out_lo, out_hi = self._owner_rows(n_to, me)
+        local = not self.splits(n_from)  # every rank holds v whole
+        cross = not local and any(span(q, e, *m)[1] > span(q, e, *m)[0] for m in moves
+                                  for q in ranks for e in ranks if q != e)
+        if not cross and out_hi - out_lo == x.shape[0] and all(
+                span(me, me, *m) == (x0, x0 + x.shape[0]) and m[1] - m[0] == out_lo - x0
+                for m in moves):
+            return [x for _ in moves]  # every row stays where it is: a view
+        outs = [_zeros(out_hi - out_lo, dev) for _ in moves]
+        for out, (src, dst, count) in zip(outs, moves):
+            lo, hi = span(me, me, src, dst, count)
+            out[lo - src + dst - out_lo : hi - src + dst - out_lo] = x[lo - x0 : hi - x0]
+        if not cross:
+            return outs
+        send, send_rows, recv_rows = [], [], []
+        for e in ranks:
+            parts = [] if e == me else [span(me, e, *m) for m in moves]
+            send.extend(x[lo - x0 : hi - x0] for lo, hi in parts)
+            send_rows.append(sum(hi - lo for lo, hi in parts))
+            recv_rows.append(0 if e == me else
+                             sum(hi - lo for lo, hi in (span(e, me, *m) for m in moves)))
+        inp = torch.cat(send) if send else _zeros(0, dev)
+        recv = collectives.permute(inp, send_rows, recv_rows, self.group)
+        off = 0
+        for q in ranks:
+            if q == me:
+                continue
+            for out, (src, dst, count) in zip(outs, moves):
+                lo, hi = span(q, me, src, dst, count)
+                out[lo - src + dst - out_lo : hi - src + dst - out_lo] = recv[off : off + hi - lo]
+                off += hi - lo
+        return outs
+
+    def _gather_move(self, x, n_from, n_to, src, dst, count) -> torch.Tensor:
+        """One move into a length that does not split (held whole): each
+        rank's rows of [src, src + count) in one all-gather."""
+        x0, x1 = self._owner_rows(n_from, self.index)
+        part = _zeros(count, x.device)
+        lo, hi = max(x0, src), min(x1, src + count)
+        if lo < hi:
+            part[lo - src : hi - src] = x[lo - x0 : hi - x0]
+        every = collectives.all_gather(part, self.group).reshape(self.n_devices, count, L.NLIMB)
+        owner = (torch.arange(src, src + count, device=x.device) // (n_from // self.n_devices))
+        out = _zeros(n_to, x.device)
+        out[dst : dst + count] = every[owner, torch.arange(count, device=x.device)]
+        return out
+
+    # -- the operations -------------------------------------------------------
+
+    def _transform(self, x: torch.Tensor, n: int, root_int: int, scale_int: int | None):
         n1, n2 = four_step_geometry(n)
-        cols = block(n2, self.n_devices, self.index)
-        x_local = x.reshape(n1, n2, L.NLIMB)[:, cols]
+        x_local = rows_to_columns(x, n1, n2, self.group)
         tw = twiddle_table(root_int, n1, n2, self.n_devices, self.index, x.device)
         z_local = four_step_local(x_local, n1, n2, self.group, root_int, tw_local=tw)
         if scale_int is not None:
             z_local = L.mont_mul(z_local, L.int_to_mont(scale_int, x.device))
-        return flatten_natural(gather_columns(z_local, self.group))
+        return columns_to_rows(z_local, n1, n2, self.group)
 
-    def ntt(self, x: torch.Tensor, root_int: int) -> torch.Tensor:
-        """Forward NTT of Montgomery values [n, 8]; pads to a power of two."""
+    def _input(self, x: torch.Tensor, n: int | None) -> tuple[torch.Tensor, int]:
         self._check(x)
-        x = _pad_pow2(x)
-        n = x.shape[0]
-        if n < 2 or x.ndim != 2 or not self._distributable(n):
-            return ntt_mont(x, root_int)
-        return self._transform(x, root_int, None)
+        if n is None:  # a whole input
+            n = next_pow2(x.shape[0])
+            return self.constrain(x, n), n
+        r = self.rows(n)
+        if x.ndim != 2 or x.shape[0] != r.stop - r.start:
+            raise ValueError(f"{tuple(x.shape)} is not this rank's rows of a length of {n}")
+        return x, n
 
-    def intt(self, x: torch.Tensor, root_int: int) -> torch.Tensor:
-        """Inverse NTT: the forward one with root^-1, each rank scaling its
-        block by n^-1 before the gather."""
-        self._check(x)
-        if x.shape[0] < 2:
+    def ntt(self, x: torch.Tensor, root_int: int, n: int | None = None) -> torch.Tensor:
+        """Forward NTT of this rank's rows of a length-n vector (Montgomery
+        [., 8]); a whole ``x`` (``n`` None) is constrained first, padded to
+        a power of two."""
+        x, n = self._input(x, n)
+        if n < 2:
             return x
-        n = next_pow2(x.shape[0])
-        if x.ndim != 2 or not self._distributable(n):
-            return intt_mont(x, root_int)
-        return self._transform(_pad_pow2(x), pow(root_int, -1, P), pow(n, -1, P))
+        if not self.splits(n):
+            return ntt_mont(_pad_pow2(x), root_int)
+        return self._transform(x, n, root_int, None)
+
+    def intt(self, x: torch.Tensor, root_int: int, n: int | None = None) -> torch.Tensor:
+        """Inverse NTT: the forward one with root^-1, each rank scaling its
+        columns by n^-1 before the last re-layout."""
+        x, n = self._input(x, n)
+        if n < 2 or not self.splits(n):
+            return intt_mont(x, root_int) if n >= 2 else x
+        return self._transform(x, n, pow(root_int, -1, P), pow(n, -1, P))
 
     def batch_inv(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's rows inverted: elementwise, so no collective."""
         self._check(x)
-        n = x.shape[0]
-        if x.ndim != 2 or n % self.n_devices or n < 8 * self.n_devices:
-            return L.batch_inv(x)
-        return collectives.all_gather(L.batch_inv(x[block(n, self.n_devices, self.index)]),
-                                      self.group)
+        return L.batch_inv(x)
 
-    def fold_round(self, cw, invpows, ao, two_inv) -> tuple[torch.Tensor, torch.Tensor]:
-        """Each rank folds the pairs (k, k + n/2) of its block of k; one
-        all-gather of the folded values and their canonical form."""
+    def fold_round(self, cw, omega_int: int, ao, two_inv,
+                   n: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """One FRI round of this rank's rows ``cw`` of the length-n
+        codeword: the pairs (k, k + n/2) for k in this rank's block of the
+        folded codeword meet in one ``permute`` (none at world size 1) and
+        are folded with the fold kernel.  Returns this rank's rows of the
+        folded codeword and of its canonical form.  When n/2 does not split
+        the codeword (the last few, shorter than D^2 rows) is gathered and
+        folded whole on every rank."""
         self._check(cw)
-        half = cw.shape[0] // 2
-        if cw.shape[0] % 2 or half % self.n_devices:
-            return FO.fold_round(cw, invpows, ao, two_inv)
-        rows = block(half, self.n_devices, self.index)
-        lo, hi = cw[rows], cw[half + rows.start : half + rows.stop]
-        folded, canon = FO.fold_pairs(lo, hi, invpows[rows], ao, two_inv)
-        both = collectives.all_gather(torch.stack([folded, canon]), self.group)
-        both = both.reshape(self.n_devices, 2, -1, L.NLIMB).transpose(0, 1)
-        both = both.reshape(2, half, L.NLIMB)
-        return both[0], both[1]
+        n = cw.shape[0] if n is None else n
+        half = n // 2
+        if not self.splits(half):
+            return super().fold_round(self.gather(cw, n), omega_int, ao, two_inv)
+        lo, hi = self.move(cw, n, half, [(0, 0, half), (half, 0, half)])
+        invpows = self.powers(pow(omega_int, -1, P), half, cw.device)
+        return FO.fold_pairs(lo, hi, invpows, ao, two_inv)
 
     def combine(self, w: torch.Tensor, term_arrs: Sequence[torch.Tensor],
-                shifts: Sequence[int]) -> torch.Tensor:
+                shifts: Sequence[int], n: int | None = None) -> torch.Tensor:
+        """This rank's rows of seg2's combination zero-padded to ``n``:
+        ``term_arrs`` are the rank's rows of length-n vectors; an unshifted
+        term adds its own rows, a shifted one first fetches the rows its
+        shift moves into the block (one ``permute``, at most the shift's rows
+        from another rank)."""
         self._check(w)
-        max_len = max(a.shape[0] + sh for a, sh in zip(term_arrs, shifts))
-        rows = -(-max_len // self.n_devices)
-        start = min(self.index * rows, max_len)
-        local = combine_rows(w, term_arrs, shifts, start, min(start + rows, max_len))
-        if local.shape[0] < rows:  # the last ranks' blocks run past the end
-            pad = torch.zeros((rows - local.shape[0], L.NLIMB), dtype=L.DTYPE, device=w.device)
-            local = torch.cat([local, pad])
-        return collectives.all_gather(local, self.group)[:max_len]
+        r = self.rows(n)
+        comb = _zeros(r.stop - r.start, w.device)
+        for idx, arr in enumerate(term_arrs):
+            sh = shifts[idx]
+            if sh:
+                (arr,) = self.move(arr, n, n, [(0, sh, n - sh)])
+            comb = L.add_mod(comb, L.mont_mul(arr, w[idx]))
+        return comb
+
+    def max_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum of ``x`` (int64, any shape) over the
+        ranks: one all-gather of ``x`` a rank."""
+        self._check(x)
+        return collectives.all_gather(x.unsqueeze(0), self.group).amax(0)
+
+    def gather(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """The whole length-n vector from every rank's rows: one all-gather
+        (nothing when n does not split)."""
+        self._check(x)
+        if not self.splits(n):
+            return x
+        return collectives.all_gather(x, self.group)
+
+    def warm(self, device) -> None:
+        """One small all-gather on the current stream: a capture's side
+        stream is warmed with it before the capture."""
+        collectives.all_gather(torch.zeros((1, 1), dtype=L.DTYPE, device=device), self.group)
 
     def draw(self, rng: Callable[[int], bytes], sizes: Sequence[int], device) -> list[bytes]:
         """Group rank 0 calls ``rng`` as the single prover does (the same

@@ -8,6 +8,9 @@ device, so a "device" of the mesh is a rank.
   for a CUDA device, gloo for the CPU, as the caller's device argument
   says.  It is a no-op in a single-process run, so one entry point works
   everywhere.
+* :func:`shutdown` ends the group: the captured graphs that hold its
+  collectives go first (``segments.release_collective_graphs``), since a
+  process group hangs on its destruction while one lives.
 * :func:`hybrid_mesh` lays the ranks out as a 2-D mesh: the ``shard``
   dimension (the domain the prover splits, :data:`mesh.AXIS`) runs over
   the ranks of one host, whose exchanges stay on its NVLink; the
@@ -76,6 +79,20 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     dist.init_process_group(backend, init_method=coordinator_address,
                             world_size=num_processes, rank=process_id)
     return True
+
+
+def shutdown() -> None:
+    """End this process's group, if it has one: every captured graph that
+    holds its collectives is released first, the card synchronised, and
+    the group destroyed.  Every rank calls it."""
+    from .. import segments
+
+    if not dist.is_initialized():
+        return
+    segments.release_collective_graphs()
+    if dist.get_backend() == "nccl":
+        torch.cuda.synchronize()
+    dist.destroy_process_group()
 
 
 class Rank(NamedTuple):

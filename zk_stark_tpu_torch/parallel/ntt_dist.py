@@ -15,7 +15,12 @@ Layouts, as there, with a rank holding its block of the sharded dimension:
   whose row-major flattening is the natural evaluation order
   (:func:`flatten_natural`).
 
-One ``all_to_all`` between the steps is the only exchange.  The local
+One ``all_to_all`` between the steps is the only exchange of the four-step
+body.  The distributed engine holds vectors in natural blocks (rank r the
+rows [r n/D, (r+1) n/D)); :func:`rows_to_columns` and
+:func:`columns_to_rows` turn a natural block into the body's input columns
+and its output columns back into a natural block, one ``all_to_all`` of
+n/D rows each (the re-layouts GSPMD puts around the JAX ``shard_map``).  The local
 transforms are the port's :func:`ops.ntt.ntt_mont` (the NTT kernel on the
 card) and the twiddle product :func:`ops.limbs.mont_mul` (the limb kernel).
 """
@@ -128,6 +133,27 @@ def intt_dist(z_local: torch.Tensor, root_int: int, group=None) -> torch.Tensor:
     n2, n1 = z_local.shape[0], z_local.shape[1] * dist.get_world_size(group)
     y = four_step_local(z_local, n2, n1, group, root_int, inverse=True)
     return L.mont_mul(y, L.int_to_mont(pow(n1 * n2, -1, P), y.device))
+
+
+def rows_to_columns(x_block: torch.Tensor, n1: int, n2: int, group=None) -> torch.Tensor:
+    """This rank's natural block [n/D, 8] of a length-n1*n2 vector (rows
+    i1 of B in its block, every column) -> its columns [n1, n2/D, 8] of B,
+    the input of :func:`four_step_local`.  One all-to-all."""
+    n_dev = dist.get_world_size(group)
+    rows, cols = n1 // n_dev, n2 // n_dev
+    chunks = x_block.reshape(rows, n_dev, cols, L.NLIMB).transpose(0, 1)
+    return collectives.all_to_all(chunks, group).reshape(n1, cols, L.NLIMB)
+
+
+def columns_to_rows(z_local: torch.Tensor, n1: int, n2: int, group=None) -> torch.Tensor:
+    """This rank's columns [n2, n1/D, 8] of Z (the output of
+    :func:`four_step_local`) -> its natural block [n/D, 8] of the flat
+    evaluation vector (rows k2 of Z in its block, every column).  One
+    all-to-all."""
+    n_dev = dist.get_world_size(group)
+    rows, cols = n2 // n_dev, n1 // n_dev
+    recv = collectives.all_to_all(z_local, group).reshape(n_dev, rows, cols, L.NLIMB)
+    return recv.transpose(0, 1).reshape(rows * n1, L.NLIMB)
 
 
 def gather_columns(local: torch.Tensor, group=None) -> torch.Tensor:

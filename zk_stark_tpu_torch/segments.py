@@ -27,22 +27,37 @@ results into the static outputs, so the CPU tests run the input plumbing,
 the output aliasing and the cache keys; only capture and replay are the
 card's.  There is no fallback: on the card a capture or a replay that
 fails raises, and no body runs eagerly in place of its graph.  A segment
-made with ``capture=False`` runs eagerly on the card as on the CPU: the
-prover's segments under the distributed engine (``parallel/engine.py``),
-whose bodies issue collectives that are not captured.
+made with ``capture=False`` runs eagerly on the card as on the CPU.
+
+A body may issue NCCL collectives (the prover's segments under the
+distributed engine, ``parallel/engine.py``): the capture records them in
+the graph with the kernels.  The segment's ``warm`` (the engine's) issues
+one collective on the side stream before the warm-up run, so the
+communicator is set up before the capture, and the collectives the
+capture recorded (``parallel/collectives.py`` :func:`capturing`) are
+counted again at every replay, as the kernels' launches are.  Such a
+graph must not outlive its process group: :func:`release_collective_graphs`
+(called by ``parallel.multihost.shutdown``) drops every one of them
+first, and a segment whose graph was dropped captures anew at its next
+call.
 """
 
 from __future__ import annotations
 
+import gc
 import time
+import weakref
 from typing import Callable, Sequence
 
 import torch
 
 from .ops import _build
+from .parallel import collectives
 
 #: replays of every segment so far
 replays = 0
+#: the segments whose graphs hold collectives
+_with_collectives: weakref.WeakSet = weakref.WeakSet()
 
 
 def _flatten(values: Sequence) -> tuple[list[torch.Tensor], tuple]:
@@ -78,11 +93,15 @@ class Segment:
     of tensors or lists of tensors.  Calls pass inputs of the first call's
     shapes and types, on any device (each is copied into its buffer)."""
 
-    def __init__(self, name: str, body: Callable, device, capture: bool = True):
+    def __init__(self, name: str, body: Callable, device, capture: bool = True,
+                 warm: Callable | None = None):
         self.name = name
         self.body = body
         self.device = torch.device(device)
         self.capture = capture
+        self.warm = warm
+        #: the collectives one replay issues, recorded at the capture
+        self.collectives = collectives.Tally()
         self.inputs: list[torch.Tensor] | None = None
         self.outputs: list | None = None
         self._in_spec = self._out_spec = None
@@ -126,6 +145,8 @@ class Segment:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
+            if self.warm is not None:
+                self.warm(dev)
             self.body(*args)
         torch.cuda.current_stream(dev).wait_stream(side)
 
@@ -136,12 +157,13 @@ class Segment:
         before = [k.launches for k in _build.Kernel.instances]
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), collectives.capturing() as issued:
             graph.capture_begin()
             try:
                 out = self.body(*args)
             finally:
                 graph.capture_end()
+        self.collectives = issued
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         # the capture recorded these launches without making them: the
@@ -153,13 +175,27 @@ class Segment:
                 k.launches = n
         self.outputs, self._out_spec = _flatten(out)
         self.graph = graph
+        if issued.events:
+            _with_collectives.add(self)
 
     def _replay(self) -> None:
         global replays
         self.graph.replay()
         for k, n in self.launches.items():
             k.launches += n
+        collectives.replay(self.collectives)
         replays += 1
+
+
+def release_collective_graphs() -> None:
+    """Drop every captured graph that holds collectives (NCCL's): the
+    process group of such a graph hangs on its destruction while the graph
+    lives.  Each of those segments captures anew at its next call."""
+    for seg in list(_with_collectives):
+        seg.graph = None
+        seg.launches = {}
+    _with_collectives.clear()
+    gc.collect()
 
 
 def cache_get(cache: dict, key: tuple, build: Callable[[], Segment]) -> Segment:

@@ -17,11 +17,20 @@ composition because the composition degree fits the coset.
 
 The prover's device work goes through its engine (``parallel/engine.py``,
 the JAX package's ``Stark(engine=...)``): the single-device ``DEFAULT``, or
-a ``DistEngine`` that splits the transforms, inversions, fold rounds and
-the combination over the ranks of a process group.  Every rank then runs
-``prove`` with the same arguments and returns the same bytes; under a
-DistEngine the segments run eagerly (not captured), and rank 0 alone
-draws the prover's random bytes and hands them to the others.
+a ``DistEngine`` over the ranks of a process group.  Every rank then runs
+``prove`` with the same arguments and returns the same bytes.  Under a
+DistEngine every codeword of the FRI domain (the coset x-values, the trace
+codewords, the AIR's evaluation, the quotients' and randomizer's
+codewords, the combination and every FRI round) and every polynomial a
+transform returns is held as the rank's natural block of rows.  Kept
+whole on every rank: the host-made polynomials (the trace columns,
+boundary interpolants and zerofiers, the randomizer) and the cached
+transition zerofier, each at most the randomized trace long, and the
+interpolation's cached tables over the omicron domain.  The
+Merkle trees hash their blocks and share the top levels, and only the
+last FRI codeword is gathered whole.  On NCCL the segments are captured
+with their collectives; rank 0 alone draws the prover's random bytes and
+hands them to the others.
 
 The verifier reads the proof on the host; its combination check (the
 queried trace values, zerofiers and quotients, weighted and summed) runs
@@ -43,7 +52,6 @@ from .fri import FRI
 from .models.air import as_air
 from .ops import limbs as L
 from .ops._build import resolve_device
-from .ops.ntt import powers_mont
 from .ops.poly_ops import (
     DPoly,
     degree_device,
@@ -51,6 +59,7 @@ from .ops.poly_ops import (
     fast_coset_divide,
     fast_coset_evaluate,
     interpolate_first_k,
+    laid,
     zerofier_first_k,
 )
 from .parallel.engine import DEFAULT
@@ -227,15 +236,15 @@ class Stark:
         )
 
     def _seg_cache_get(self, name: str, key: tuple, body,
-                       capture: bool = True) -> segments.Segment:
+                       capture: bool = True, warm=None) -> segments.Segment:
         """The segment ``name`` of this configuration and ``key``; ``body``
         (a function of tensors) is captured only on the first use of the
         key, so everything it closes over besides its inputs must be fixed
         by the key.  With ``capture`` false it runs eagerly on the card
-        too."""
+        too; ``warm`` (the engine's) runs before a capture's warm-up."""
         return segments.cache_get(
             Stark._SEG_CACHE, (name, self._config_key()) + key,
-            lambda: segments.Segment(name, body, self.device, capture=capture),
+            lambda: segments.Segment(name, body, self.device, capture=capture, warm=warm),
         )
 
     # -- prover --------------------------------------------------------------
@@ -253,6 +262,11 @@ class Stark:
         tdb = self.transition_degree_bounds(air)
         T = trace_cols.shape[1]
         eng = self.engine
+
+        def held(poly):
+            """A quotient as seg2 takes it: whole under the single engine,
+            the rank's block of the FRI domain under a distributed one."""
+            return laid(poly, fri_dl, eng) if eng.is_distributed else poly.c
 
         tps = [interpolate_first_k(omicron, odl, T, trace_cols[s], engine=eng)
                for s in range(m)]
@@ -272,7 +286,7 @@ class Stark:
             bqs.append(bq)
             bq_cws.append(fast_coset_evaluate(bq, g, omega, fri_dl, engine=eng))
 
-        x_cw = eng.constrain(powers_mont(omega, fri_dl, self.device, scale_int=g))
+        x_cw = eng.powers(omega, fri_dl, self.device, scale_int=g)
         cur = [fast_coset_evaluate(tp, g, omega, fri_dl, engine=eng) for tp in tps]
         nxt = [fast_coset_evaluate(tp.scale(omicron), g, omega, fri_dl, engine=eng)
                for tp in tps]
@@ -281,26 +295,27 @@ class Stark:
         tz = self.transition_zerofier()
         g_inv = pow(g, -1, p)
         tqs, tq_degs = [], []
-        for i, cw in enumerate(air.evaluate_codewords(point)):
-            tpoly = DPoly(eng.intt(cw, omega)).scale(g_inv)
+        for i, cw in enumerate(air.evaluate_codewords(point, engine=eng)):
+            tpoly = DPoly.held(eng.intt(cw, omega, fri_dl), fri_dl, eng).scale(g_inv)
             tq = fast_coset_divide(
                 tpoly, tz, g, omicron, odl,
                 lhs_degree=tdb[i], rhs_degree=orig_t - 1, engine=eng,
             )
             tqs.append(tq)
-            tq_degs.append(degree_device(tq.c))
+            tq_degs.append(degree_device(tq.c, tq.start))
 
         rand_cw = fast_coset_evaluate(DPoly(rand_arr), g, omega, fri_dl, engine=eng)
         canons = L.from_mont(torch.stack(bq_cws + [rand_cw]))
-        return canons, [tq.c for tq in tqs], [bq.c for bq in bqs], torch.stack(tq_degs)
+        return (canons, [held(tq) for tq in tqs], [held(bq) for bq in bqs],
+                eng.max_over_ranks(torch.stack(tq_degs)))
 
     def _segment2(self, w: torch.Tensor, term_arrs, shifts) -> tuple[torch.Tensor]:
         """Weighted combination (weights ``w`` [W, 8]) of the shifted
         quotients and the randomizer, evaluated on the FRI coset."""
-        comb = self.engine.combine(w, term_arrs, shifts)
+        eng, fri_dl = self.engine, self.fri.domain_length
+        comb = eng.combine(w, term_arrs, shifts, fri_dl)
         return (fast_coset_evaluate(
-            DPoly(comb), self.generator, self.omega, self.fri.domain_length,
-            engine=self.engine,
+            DPoly.held(comb, fri_dl, eng), self.generator, self.omega, fri_dl, engine=eng,
         ),)
 
     def prove(
@@ -359,6 +374,7 @@ class Stark:
             ),
             lambda *args: self._segment1(air, *args),
             capture=self.engine.captures_segments,
+            warm=self.engine.warm,
         )
         with record_function("stark.segment1"), stage(self.timer, "segment1"):
             canons, tq_stack, bq_stack, tq_degs = seg1(
@@ -366,8 +382,10 @@ class Stark:
             )
 
         # commit to boundary quotients + randomizer
+        fri_dl = self.fri.domain_length
         with record_function("stark.commit"), stage(self.timer, "commit_roots"):
-            trees = [merkle.DeviceMerkleTree(canons[s]) for s in range(m + 1)]
+            trees = [merkle.DeviceMerkleTree(canons[s], fri_dl, self.engine)
+                     for s in range(m + 1)]
             for tree in trees:
                 ps.push(Root(tree.root))
             tq_degrees = [int(d) for d in tq_degs.cpu().tolist()]
@@ -391,7 +409,7 @@ class Stark:
         )
         # each quotient enters twice, unshifted and shifted: the segment
         # takes each array once (its inputs are copies)
-        arrs = [rand_arr] + list(tq_stack) + list(bq_stack)
+        arrs = [self.engine.constrain(rand_arr, fri_dl)] + list(tq_stack) + list(bq_stack)
         terms, shifts = [0], [0]
         for i, bound in enumerate(tq_bounds + bq_bounds):
             terms.extend([1 + i, 1 + i])
@@ -401,6 +419,7 @@ class Stark:
             (tuple(shifts), tuple(int(arrs[t].shape[0]) for t in terms)),
             lambda w, a: self._segment2(w, [a[t] for t in terms], shifts),
             capture=self.engine.captures_segments,
+            warm=self.engine.warm,
         )
         with record_function("stark.segment2"), stage(self.timer, "segment2"):
             (combined,) = seg2(L.ints_to_mont(weights, "cpu"), arrs)
@@ -410,7 +429,6 @@ class Stark:
             indices = self.fri.prove(combined, ps)
 
         # open boundary quotients and randomizer
-        fri_dl = self.fri.domain_length
         duplicated_indices = indices + [
             (i + self.expansion_factor) % fri_dl for i in indices
         ]
